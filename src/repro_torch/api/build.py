@@ -1,0 +1,136 @@
+"""`build_basis`: the front door of the port.
+
+Port of :mod:`repro.api.build` for the resident greedy strategy.
+``strategy="auto"`` resolves to ``"greedy"`` (the only ported strategy)
+and logs the choice on logger ``repro_torch.api``.  The greedy build runs
+:func:`repro_torch.core.greedy.rb_greedy`, so the artifact's arrays equal
+``rb_greedy``'s (trimmed) output.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import shutil
+import time
+
+import torch
+
+from repro_torch.api.artifact import ReducedBasis
+from repro_torch.api.spec import ReductionSpec
+from repro_torch.device import resolve_device
+
+logger = logging.getLogger("repro_torch.api")
+
+
+def _trim_greedy(res):
+    from repro_torch.core.greedy import STOP_NAMES
+
+    k = int(res.k)
+    return (res.Q[:, :k].contiguous(),
+            res.pivots[:k].cpu().numpy(), res.errs[:k].cpu().numpy(),
+            res.R[:k].cpu().numpy(), k,
+            {"stop": STOP_NAMES.get(int(res.stop), str(int(res.stop)))})
+
+
+def _build_greedy(spec, S, ckpt_dir=None):
+    from repro_torch.core.greedy import rb_greedy
+
+    return _trim_greedy(rb_greedy(
+        S, tau=spec.tau, max_k=spec.max_k, kappa=spec.kappa,
+        max_passes=spec.max_passes, callback=spec.callback,
+        refresh=spec.refresh, refresh_safety=spec.refresh_safety,
+        chunk=spec.chunk, backend=spec.backend,
+        checkpoint_dir=ckpt_dir, resume=spec.resume, device=S.device,
+    ))
+
+
+def build_basis(spec: ReductionSpec | None = None,
+                **kwargs) -> ReducedBasis:
+    """Build a reduced basis.
+
+    Call with a :class:`ReductionSpec`, keyword arguments, or both (the
+    keywords override spec fields)::
+
+        basis = build_basis(source=S, tau=1e-6)              # on cuda
+        basis = build_basis(source=S, tau=1e-6, device="cpu")
+
+    Returns a :class:`ReducedBasis` trimmed to the accepted rank, with
+    build provenance attached.
+    """
+    if spec is None:
+        spec = ReductionSpec(**kwargs)
+    elif kwargs:
+        spec = dataclasses.replace(spec, **kwargs)
+    if not isinstance(spec, ReductionSpec):
+        raise TypeError(
+            f"build_basis takes a ReductionSpec (or keyword args), got "
+            f"{type(spec).__name__}")
+
+    from repro_torch.core.backend import resolve_backend
+    from repro_torch.data.providers import materialize_source
+
+    device = resolve_device(spec.device)
+    # ------------------------------------------- workdir build lifecycle --
+    # A workdir owns the whole build: mid-build checkpoints in
+    # <workdir>/build/, the finished basis finalized atomically into
+    # <workdir> itself, scratch removed on success.  Crash anywhere +
+    # relaunch with resume=True lands on the identical artifact.
+    build_dir = None
+    if spec.workdir is not None:
+        build_dir = os.path.join(spec.workdir, "build")
+        if spec.resume:
+            try:
+                basis = ReducedBasis.load(spec.workdir, device)
+            except (FileNotFoundError, IOError):
+                pass  # nothing finalized yet: (re)build below
+            else:
+                # Already finalized (the previous run died between
+                # finalize and scratch cleanup): return it, finish the GC.
+                shutil.rmtree(build_dir, ignore_errors=True)
+                logger.info("workdir %s already holds a finalized basis; "
+                            "returning it", spec.workdir)
+                return basis
+        else:
+            # A fresh build must not splice onto a previous run's steps.
+            shutil.rmtree(build_dir, ignore_errors=True)
+    ckpt_dir = build_dir if build_dir is not None else spec.checkpoint_dir
+
+    strategy = spec.strategy
+    if strategy == "auto":
+        strategy = "greedy"
+        logger.info("auto strategy -> 'greedy' (the only strategy ported "
+                    "to repro_torch)")
+    S = materialize_source(spec.source, device)
+
+    t0 = time.perf_counter()
+    Q, pivots, errs, R, k, extras = _build_greedy(spec, S, ckpt_dir)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+
+    from repro_torch import __version__
+
+    provenance = {
+        "strategy": strategy,
+        "requested_strategy": spec.strategy,
+        "backend": resolve_backend(spec.backend),
+        "device": device.type,
+        "dtype": str(S.dtype).removeprefix("torch."),
+        "shape": [int(S.shape[0]), int(S.shape[1])],
+        "tau": spec.tau,
+        "max_k": spec.max_k,
+        "block_p": 1,
+        "wall_time_s": wall,
+        "spec": spec.describe(),
+        "repro_version": __version__,
+        **extras,
+    }
+    basis = ReducedBasis(Q=Q, pivots=pivots, errs=errs, k=k, R=R,
+                         provenance=provenance)
+    if spec.workdir is not None:
+        # Finalize: atomic save into the workdir, THEN drop the scratch.
+        basis.save(spec.workdir)
+        shutil.rmtree(build_dir, ignore_errors=True)
+    return basis

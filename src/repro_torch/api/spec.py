@@ -1,0 +1,109 @@
+"""`ReductionSpec`: one declarative description of a basis build.
+
+Port of :mod:`repro.api.spec`, limited to the fields the greedy builder
+reads, plus ``device``.  The other strategies of the reference are named
+in ``STRATEGIES``; asking for one that is not ported yet raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable, Optional
+
+STRATEGIES = (
+    "pod", "mgs", "greedy", "block_greedy", "streamed", "distributed",
+    "randomized", "sketch+greedy", "batched", "auto",
+)
+
+# Strategy -> the ROADMAP.md item that ports it.
+_NOT_PORTED = {
+    "pod": "queue 1 item 4 (paper oracles pod/mgs/rrqr)",
+    "mgs": "queue 1 item 4 (paper oracles pod/mgs/rrqr)",
+    "streamed": "queue 1 item 1 (WaveformProvider and the streamed driver)",
+    "block_greedy": "queue 1 item 3 (blocked path)",
+    "randomized": "queue 1 item 5 (randomized sketch)",
+    "sketch+greedy": "queue 1 item 5 (randomized sketch)",
+    "batched": "queue 1 item 6 (batched many-basis greedy)",
+    "distributed": "queue 1 item 7 (distributed greedy)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ReductionSpec:
+    """Everything :func:`repro_torch.api.build_basis` needs to build a basis.
+
+    Attributes:
+      source: the snapshot matrix — anything
+        :func:`repro_torch.data.providers.as_provider` accepts (a numpy
+        array, a torch tensor, a ``.npy`` path or a provider).
+      strategy: ``"greedy"``, or ``"auto"`` (which resolves to
+        ``"greedy"``).  The reference's other strategies raise
+        ``NotImplementedError``.
+      tau: greedy stopping tolerance (the paper's ``tau``).
+      max_k: basis-size cap (default ``min(N, M)``).
+      backend: hot-loop backend (:mod:`repro_torch.core.backend`):
+        ``"auto" | "ref"`` or None (env/default).
+      chunk: greedy iterations per host sync.
+      kappa, max_passes: Hoffmann iterated-GS controls.
+      refresh, refresh_safety: Eq.-(6.3) exact-refresh policy
+        (``"never"`` is the paper-faithful mode).
+      workdir: directory owning the build's lifecycle: mid-build
+        checkpoints in ``<workdir>/build/``, the finished basis finalized
+        atomically into ``<workdir>``, the scratch removed.  Mutually
+        exclusive with ``checkpoint_dir``.
+      checkpoint_dir / resume: mid-build checkpointing; ``resume`` also
+        governs ``workdir``.
+      callback: per-chunk callback, forwarded to the driver.
+      device: where the build runs — ``"cuda"`` (default) or ``"cpu"``.
+    """
+
+    source: Any = None
+    strategy: str = "auto"
+    tau: float = 1e-6
+    max_k: Optional[int] = None
+    backend: Optional[str] = None
+    chunk: int = 16
+    kappa: float = 2.0
+    max_passes: int = 3
+    refresh: str = "auto"
+    refresh_safety: float = 100.0
+    workdir: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    resume: bool = False
+    callback: Optional[Callable] = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown strategy {self.strategy!r}; valid: {STRATEGIES}")
+        if self.strategy in _NOT_PORTED:
+            raise NotImplementedError(
+                f"strategy {self.strategy!r} is not ported to repro_torch "
+                f"yet: ROADMAP.md {_NOT_PORTED[self.strategy]}")
+        if self.source is None:
+            raise ValueError("ReductionSpec requires a source")
+        if self.workdir is not None and self.checkpoint_dir is not None:
+            raise ValueError(
+                "workdir and checkpoint_dir are mutually exclusive: "
+                "workdir manages its own build/ checkpoint directory")
+
+    def describe(self) -> dict:
+        """JSON-serializable provenance view of this spec (source and
+        callback summarized, not embedded)."""
+        d = {f.name: getattr(self, f.name)
+             for f in dataclasses.fields(self)}
+        src = self.source
+        shape = getattr(src, "shape", None)
+        d["source"] = {
+            "kind": type(src).__name__,
+            "shape": list(shape) if shape is not None else None,
+            "dtype": str(getattr(src, "dtype", None)),
+            **({"path": os.fspath(src)}
+               if isinstance(src, (str, os.PathLike)) else {}),
+        }
+        d["callback"] = None if self.callback is None else "<callback>"
+        d["device"] = str(self.device)
+        return d

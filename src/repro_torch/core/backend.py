@@ -1,0 +1,75 @@
+"""Backend dispatch for the greedy hot-loop primitives.
+
+The greedy driver spends its time in two primitives:
+
+  pivot_update   the paper's Eq.-(6.3) sweep: ``c = q^H S``,
+                 ``acc + |c|^2``, residual argmax — one read of S per basis
+                 vector (Fig. 6.1a),
+  project_pass   one classical-GS projection ``c = Q^H v``,
+                 ``v' = v - Q c`` (Fig. 6.1b).
+
+Two backends:
+
+  ``auto``  the hand-written CUDA kernels for CUDA tensors
+            (:mod:`repro_torch.kernels.greedy_update`,
+            :mod:`repro_torch.kernels.imgs_project`), their plain PyTorch
+            versions for CPU tensors.  A CUDA tensor gets the kernel or an
+            error, never the plain version.
+  ``ref``   the literal plain ops (``kernels/*/ref.py``) on any device, on
+            explicit request only — the counterpart of the reference's
+            ``xla_ref``.
+
+Precedence: explicit ``backend=`` > ``REPRO_TORCH_GREEDY_BACKEND`` > ``auto``.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from repro_torch.kernels.greedy_update.ops import greedy_update
+from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+from repro_torch.kernels.imgs_project.ops import imgs_project
+from repro_torch.kernels.imgs_project.ref import imgs_project_ref
+
+VALID_BACKENDS = ("auto", "ref")
+
+_ENV_VAR = "REPRO_TORCH_GREEDY_BACKEND"
+
+
+def resolve_backend(backend: str | None = None) -> str:
+    """Resolve a backend request to ``"auto"`` or ``"ref"``.
+
+    ``None`` consults the ``REPRO_TORCH_GREEDY_BACKEND`` env var, then
+    falls back to ``"auto"``.
+    """
+    if backend is None:
+        backend = os.environ.get(_ENV_VAR) or "auto"
+    if backend not in VALID_BACKENDS:
+        raise ValueError(
+            f"unknown greedy backend {backend!r}; valid: {VALID_BACKENDS}")
+    return backend
+
+
+def pivot_update(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
+                 norms_sq: torch.Tensor, backend: str | None = None):
+    """Fused Eq.-(6.3) update: ``c = q^H S``, ``acc + |c|^2``, argmax.
+
+    Returns ``(c, acc_out, max_res, argmax)``.  ``max_res``/``argmax``
+    describe the residual AFTER this update, i.e. the next iteration's
+    pivot: the greedy driver re-derives its pivot from ``norms_sq - acc``
+    and ignores them, but a driver that folds pivots across column tiles
+    uses them.  ``acc`` is not modified.
+    """
+    if resolve_backend(backend) == "ref":
+        return greedy_update_ref(q, S, acc, norms_sq)
+    return greedy_update(q, S, acc, norms_sq)
+
+
+def project_pass(v: torch.Tensor, Q: torch.Tensor,
+                 backend: str | None = None):
+    """One classical-GS pass: returns ``(v - Q Q^H v, Q^H v)``."""
+    if resolve_backend(backend) == "ref":
+        return imgs_project_ref(v, Q)
+    return imgs_project(v, Q)

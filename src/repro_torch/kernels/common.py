@@ -1,0 +1,62 @@
+"""Helpers shared by the CUDA kernel wrappers (``ops.py`` modules).
+
+One home for the argument checks and the launch plumbing, so that both
+wrappers validate their tensors the same way before a pointer reaches C.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# The dtype suffix of each C entry point (``greedy_update_c64`` ...).
+DTYPE_SUFFIX = {
+    torch.float32: "f32",
+    torch.float64: "f64",
+    torch.complex64: "c64",
+    torch.complex128: "c128",
+}
+
+
+def check_tensor(kernel: str, name: str, t: torch.Tensor,
+                 dtype: torch.dtype, shape: tuple, device: torch.device):
+    """Raise ``ValueError`` unless ``t`` is a contiguous CUDA tensor of the
+    given dtype, shape and device — what the kernels' raw pointers need."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} has dtype {t.dtype}, expected "
+                         f"{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def kernel_dtype(kernel: str, dtype: torch.dtype) -> str:
+    """The C entry suffix for ``dtype``; raises on a dtype with no kernel."""
+    try:
+        return DTYPE_SUFFIX[dtype]
+    except KeyError:
+        raise ValueError(
+            f"{kernel}: no kernel for dtype {dtype}; supported: "
+            f"{list(DTYPE_SUFFIX)}") from None
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``: every kernel launches there."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on_error(lib, kernel: str, err: int) -> None:
+    """Raise if a C entry returned a CUDA error (its ``cudaGetLastError``)."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed ({err}): {msg}")

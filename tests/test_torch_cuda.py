@@ -1,0 +1,130 @@
+"""The hand-written CUDA kernels vs their plain PyTorch versions, on the
+card.  Every test here needs a CUDA device and skips without one.
+
+This file imports neither JAX nor the test conftest, so that it runs on a
+machine with PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.greedy_update import ops as gu_ops
+from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+from repro_torch.kernels.imgs_project import ops as ip_ops
+from repro_torch.kernels.imgs_project.ref import imgs_project_ref
+
+DTYPES = [torch.float32, torch.complex64, torch.float64, torch.complex128]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (hand-written kernels)")
+    return torch.device("cuda")
+
+
+def _tol(dtype, n):
+    """Rounding of an n-term sum in the working precision: the kernel and
+    the plain version sum in different orders, each off by ~eps*sqrt(n)
+    of the terms' scale; 10x margin."""
+    return 10.0 * torch.finfo(dtype.to_real()).eps * n ** 0.5
+
+
+def _rand(gen, shape, dtype, device):
+    x = torch.randn(shape, generator=gen, dtype=torch.float64)
+    if dtype.is_complex:
+        x = torch.complex(x, torch.randn(shape, generator=gen,
+                                         dtype=torch.float64))
+    return x.to(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(17, 33), (300, 700), (1025, 4099)])
+def test_greedy_update_kernel_matches_plain(cuda, dtype, shape):
+    """c, acc_out and max_res within _tol; the argmax exact: the residuals
+    are separated by design (a distinct offset per column, far above the
+    tolerance), so no near-tie can make it legitimately differ."""
+    gen = torch.Generator().manual_seed(0)
+    N, M = shape
+    S = _rand(gen, (N, M), dtype, cuda)
+    q = _rand(gen, (N,), dtype, cuda)
+    q = q / torch.linalg.vector_norm(q)
+    rdt = dtype.to_real()
+    acc = torch.rand(M, generator=gen, dtype=torch.float64).to(rdt).to(cuda)
+    perm = torch.randperm(M, generator=gen).to(cuda)
+    norms = (S.abs() ** 2).sum(0) + perm.to(rdt)
+    n0 = gu_ops.launches
+    c, a, mx, am = gu_ops.greedy_update(q, S, acc, norms)
+    torch.cuda.synchronize()
+    assert gu_ops.launches == n0 + 1
+    cr, ar, mxr, amr = greedy_update_ref(q, S, acc, norms)
+    scale = float(torch.linalg.vector_norm(S, dim=0).max())
+    tol = _tol(dtype, N) * scale
+    assert float((c - cr).abs().max()) <= tol
+    assert float((a - ar).abs().max()) <= 2 * float(cr.abs().max()) * tol \
+        + 4 * torch.finfo(rdt).eps * float(ar.abs().max())
+    assert int(am) == int(amr)
+    assert float(norms[am] - a[am]) == float(mx)
+    assert abs(float(mx) - float(mxr)) <= 2 * scale * tol \
+        + 4 * torch.finfo(rdt).eps * float(norms.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(17, 33), (513, 37), (1000, 100)])
+def test_imgs_project_kernel_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator().manual_seed(1)
+    N, K = shape
+    Q = torch.linalg.qr(_rand(gen, (N, K), dtype, cuda))[0].contiguous()
+    v = _rand(gen, (N,), dtype, cuda)
+    n0 = ip_ops.launches
+    vo, c = ip_ops.imgs_project(v, Q)
+    torch.cuda.synchronize()
+    assert ip_ops.launches == n0 + 1
+    vr, cr = imgs_project_ref(v, Q)
+    tol = _tol(dtype, N) * float(torch.linalg.vector_norm(v))
+    assert float((c - cr).abs().max()) <= tol
+    assert float((vo - vr).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_arguments(cuda):
+    S = torch.zeros((8, 5), dtype=torch.complex64, device=cuda)
+    q = torch.zeros(8, dtype=torch.complex64, device=cuda)
+    acc = torch.zeros(5, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        gu_ops.greedy_update(q.to(torch.complex128), S, acc, acc)
+    with pytest.raises(ValueError, match="contiguous"):
+        ip_ops.imgs_project(q, torch.zeros((5, 8), dtype=S.dtype,
+                                           device=cuda).mT)
+    with pytest.raises(ValueError, match="no kernel for dtype"):
+        gu_ops.greedy_update(q.real.half(), S.real.half(), acc.half(),
+                             acc.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float64])
+def test_greedy_driver_on_card_matches_cpu(cuda, dtype):
+    """The whole driver on the card (through both kernels) picks the CPU
+    build's pivots on a smooth family, above the cancellation floor."""
+    from repro_torch.core.greedy import rb_greedy
+
+    x = np.linspace(0, 1, 200)
+    nu = np.linspace(0.5, 2.0, 120)
+    S = np.stack([np.sin(2 * np.pi * v * x) * np.exp(-v * x) for v in nu],
+                 axis=1)
+    if dtype.is_complex:
+        S = S * np.exp(1j * np.outer(x, nu))
+    S = torch.from_numpy(S).to(dtype)
+    tau = 1e-2 * float(torch.linalg.vector_norm(S, dim=0).max())
+    n0, p0 = gu_ops.launches, ip_ops.launches
+    gpu = rb_greedy(S, tau, device=cuda)
+    cpu = rb_greedy(S, tau, device="cpu")
+    assert gu_ops.launches > n0 and ip_ops.launches > p0
+    assert gpu.k == cpu.k >= 4 and gpu.stop == cpu.stop
+    assert torch.equal(gpu.pivots.cpu(), cpu.pivots)

@@ -1,0 +1,184 @@
+"""Plain versions of the port's kernels vs the JAX reference, the CPU rule
+of the wrappers and the kernel build.  The hand-written kernels themselves
+are held against these plain versions on the card by test_torch_cuda.py.
+
+Inputs are made with numpy from a seed and handed to both packages.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from conftest import dtype_tol
+
+from repro.kernels.greedy_update.ops import greedy_update as pallas_update
+from repro.kernels.greedy_update.ref import greedy_update_ref as jax_update
+from repro.kernels.imgs_project.ops import imgs_project as pallas_project
+from repro.kernels.imgs_project.ref import imgs_project_ref as jax_project
+from repro_torch.core import backend
+from repro_torch.kernels import _build
+from repro_torch.kernels.greedy_update import ops as gu_ops
+from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+from repro_torch.kernels.imgs_project import ops as ip_ops
+from repro_torch.kernels.imgs_project.ref import imgs_project_ref
+
+LOW = [np.float32, np.complex64]
+HIGH = [np.float64, np.complex128]
+UPDATE_SHAPES = [(64, 96), (300, 700), (1024, 256), (17, 33)]
+PROJECT_SHAPES = [(128, 16), (513, 37), (1000, 100), (17, 33)]
+
+
+def _mk(rng, shape, dtype):
+    if np.issubdtype(dtype, np.complexfloating):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(dtype)
+    return rng.standard_normal(shape).astype(dtype)
+
+
+def _update_inputs(rng, shape, dtype):
+    N, M = shape
+    rdt = np.finfo(dtype).dtype
+    S = _mk(rng, (N, M), dtype)
+    q = _mk(rng, (N,), dtype)
+    q = (q / np.linalg.norm(q)).astype(dtype)
+    acc = np.abs(rng.standard_normal(M)).astype(rdt)
+    norms = np.sum(np.abs(S) ** 2, axis=0).astype(rdt)
+    return q, S, acc, norms
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _check_update(got, want, dtype, N):
+    """c within dtype_tol of |c|'s scale (N-term sums: eps*sqrt(N) growth);
+    acc within the same relative tolerance of |c|^2; max_res alike; the
+    argmax exact (the random residuals have no near-ties)."""
+    c, a, mx, am = (np.asarray(x) for x in got)
+    cr, ar, mxr, amr = (np.asarray(x) for x in want)
+    tol = dtype_tol(dtype, N)
+    scale = float(np.abs(cr).max())
+    np.testing.assert_allclose(c, cr, rtol=tol, atol=tol * scale)
+    np.testing.assert_allclose(a, ar, rtol=tol, atol=tol * scale ** 2)
+    assert abs(float(mx) - float(mxr)) <= tol * (abs(float(mxr)) + scale ** 2)
+    assert int(am) == int(amr)
+
+
+# ------------------------------------------------------------- greedy_update
+@pytest.mark.parametrize("dtype", LOW)
+@pytest.mark.parametrize("shape", UPDATE_SHAPES)
+def test_greedy_update_ref_matches_jax_and_pallas(rng, dtype, shape):
+    """f32/c64: against the JAX oracle and the Pallas kernel (interpret
+    mode; it accumulates in f32 like the port)."""
+    q, S, acc, norms = _update_inputs(rng, shape, dtype)
+    got = greedy_update_ref(*_torch(q, S, acc, norms))
+    jargs = [jnp.asarray(x) for x in (q, S, acc, norms)]
+    _check_update(got, jax_update(*jargs), dtype, shape[0])
+    _check_update(got, pallas_update(*jargs, interpret=True), dtype,
+                  shape[0])
+
+
+@pytest.mark.parametrize("dtype", HIGH)
+@pytest.mark.parametrize("shape", UPDATE_SHAPES)
+def test_greedy_update_ref_matches_jax_f64(rng, dtype, shape):
+    """f64/c128: against the JAX oracle (xla_ref) only — the Pallas kernel
+    sums these in f32."""
+    q, S, acc, norms = _update_inputs(rng, shape, dtype)
+    got = greedy_update_ref(*_torch(q, S, acc, norms))
+    _check_update(got, jax_update(*(jnp.asarray(x)
+                                    for x in (q, S, acc, norms))),
+                  dtype, shape[0])
+
+
+def test_greedy_update_first_index_on_ties():
+    """Equal residuals: the first index wins, as jnp.argmax picks it."""
+    S = np.zeros((4, 6), np.float32)
+    q = np.array([1, 0, 0, 0], np.float32)
+    norms = np.array([0, 3, 1, 3, 3, 0], np.float32)
+    acc = np.zeros(6, np.float32)
+    _, _, mx, am = greedy_update_ref(*_torch(q, S, acc, norms))
+    assert float(mx) == 3.0 and int(am) == 1
+    assert int(jax_update(*(jnp.asarray(x) for x in (q, S, acc, norms)))[3]) \
+        == 1
+
+
+# -------------------------------------------------------------- imgs_project
+def _project_inputs(rng, shape, dtype):
+    N, K = shape
+    Q, _ = np.linalg.qr(_mk(rng, (N, K), dtype))
+    return _mk(rng, (N,), dtype), np.ascontiguousarray(Q.astype(dtype))
+
+
+def _check_project(got, want, dtype, N):
+    """v' and c within dtype_tol (unit-norm Q columns, O(1) entries)."""
+    tol = dtype_tol(dtype, N)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", LOW)
+@pytest.mark.parametrize("shape", PROJECT_SHAPES)
+def test_imgs_project_ref_matches_jax_and_pallas(rng, dtype, shape):
+    v, Q = _project_inputs(rng, shape, dtype)
+    got = imgs_project_ref(*_torch(v, Q))
+    jargs = (jnp.asarray(v), jnp.asarray(Q))
+    _check_project(got, jax_project(*jargs), dtype, shape[0])
+    _check_project(got, pallas_project(*jargs, interpret=True), dtype,
+                   shape[0])
+
+
+@pytest.mark.parametrize("dtype", HIGH)
+@pytest.mark.parametrize("shape", PROJECT_SHAPES)
+def test_imgs_project_ref_matches_jax_f64(rng, dtype, shape):
+    v, Q = _project_inputs(rng, shape, dtype)
+    _check_project(imgs_project_ref(*_torch(v, Q)),
+                   jax_project(jnp.asarray(v), jnp.asarray(Q)), dtype,
+                   shape[0])
+
+
+# ------------------------------------------------ wrappers and dispatch ----
+def test_wrappers_take_plain_version_on_cpu(rng):
+    """On CPU tensors the wrappers are the plain versions, bit for bit,
+    and launch nothing."""
+    n0, p0 = gu_ops.launches, ip_ops.launches
+    q, S, acc, norms = _torch(*_update_inputs(rng, (40, 50), np.complex64))
+    for x, y in zip(gu_ops.greedy_update(q, S, acc, norms),
+                    greedy_update_ref(q, S, acc, norms)):
+        assert torch.equal(x, y)
+    v, Q = _torch(*_project_inputs(rng, (40, 7), np.complex64))
+    for x, y in zip(ip_ops.imgs_project(v, Q), imgs_project_ref(v, Q)):
+        assert torch.equal(x, y)
+    assert (gu_ops.launches, ip_ops.launches) == (n0, p0)
+
+
+def test_resolve_backend(monkeypatch):
+    monkeypatch.delenv("REPRO_TORCH_GREEDY_BACKEND", raising=False)
+    assert backend.resolve_backend() == "auto"
+    assert backend.resolve_backend("ref") == "ref"
+    monkeypatch.setenv("REPRO_TORCH_GREEDY_BACKEND", "ref")
+    assert backend.resolve_backend() == "ref"
+    assert backend.resolve_backend("auto") == "auto"  # explicit wins
+    with pytest.raises(ValueError, match="unknown greedy backend"):
+        backend.resolve_backend("pallas")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """A missing toolchain is an error, not a quiet fallback."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+
+
+def test_library_name_tracks_sources():
+    """The built library's name carries a hash of csrc/, so an edited
+    source is never served by a stale library."""
+    p = _build.library_path("greedy_update")
+    assert p.parent == _build.BUILD_DIR
+    assert p.name.startswith("libgreedy_update-") and p.suffix == ".so"
+    assert {s + ".cu" for s in _build.SOURCES} <= set(
+        os.listdir(_build.CSRC))
