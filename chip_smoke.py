@@ -2,24 +2,28 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the paper's RB-greedy build at the GW
-workload's full width (N = 10,000 frequencies, complex64, max_k = 100,
-M = 131,072 TaylorF2 snapshots: 10.5 GB of S on the card), then the
-artifact and the ROQ online stage — and holds each hand-written kernel
-against its plain PyTorch version.  Phases, each one JSON line:
+Drives the port's two build paths at the GW workload's full width
+(N = 10,000 frequencies, complex64, max_k = 100, M = 131,072 TaylorF2
+snapshots: 10.5 GB of S on the card) — the paper's RB-greedy build, then
+the artifact and the ROQ online stage, then the blocked build
+(``strategy="block_greedy"``, block_p = 8) — and holds each hand-written
+kernel against its plain PyTorch version.  Phases, each one JSON line:
 
   env        torch / CUDA versions and the card
   build      seconds to build the CUDA kernels (nvcc, at first use)
-  kernels    each kernel vs its plain version at the main path's shapes and
-             at small ragged ones, with the tolerance of each check; times
-             of the kernel, the plain version and the one-call library
+  kernels    each kernel vs its plain version at the paths' shapes and at
+             small ragged ones, with the tolerance of each check; times of
+             the kernel, the plain version and the one-call library
              yardstick (CUDA events, best of n), and the bound
   snapshots  generation of S on the card
-  build_basis  the full-width build through the front door; launches of
-             each kernel (counted from 0 just before it), orthogonality and
-             per-column-error checks
+  build_basis  the full-width greedy build through the front door;
+             launches of each kernel (counted from 0 just before it),
+             orthogonality and per-column-error checks
   artifact   save/load bit-equality, EIM nodes
   roq        16 ROQ inner products against full quadrature
+  block_build  the full-width blocked build through the front door, with
+             the greedy basis freed first; launches counted from 0 just
+             before it, the same checks, k within the staleness bound
 
 Then a line listing every ported kernel, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
@@ -49,6 +53,7 @@ N, M, MAX_K = 10_000, 131_072, 100
 N_MC, N_ETA = 512, 256            # chirp grid, N_MC * N_ETA == M
 F_MIN, F_MAX = 40.0, 1024.0       # Hz
 TAU = 1e-4
+BLOCK_P = 8                       # the blocked path's pivots per sweep
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
@@ -125,6 +130,52 @@ def check_greedy_update(S, q, acc, norms, exact_argmax: bool) -> float:
     return err_c
 
 
+def check_block_sweep(Qnew, S, acc) -> float:
+    """Kernel vs plain on one input; returns the max abs error of C."""
+    from repro_torch.kernels.block_sweep.ops import block_sweep
+    from repro_torch.kernels.block_sweep.ref import block_sweep_ref
+
+    C, a = block_sweep(Qnew, S, acc)
+    Cr, ar = block_sweep_ref(Qnew, S, acc)
+    torch.cuda.synchronize()
+    p = Qnew.shape[1]
+    eps = torch.finfo(acc.dtype).eps
+    tol = sum_tol(S.dtype, S.shape[0]) * float(
+        torch.linalg.vector_norm(S, dim=0).max()) * float(
+        torch.linalg.vector_norm(Qnew, dim=0).max())
+    err_c = float((C - Cr).abs().max())
+    # acc_out adds p terms |C_i|^2, each off by ~2 |C_i| tol, and rounds
+    # a (p + 1)-term sum
+    tol_a = 2 * p * float(Cr.abs().max()) * tol + (p + 4) * eps * float(
+        ar.abs().max())
+    err_a = float((a - ar).abs().max())
+    check(err_c <= tol, f"block_sweep C: {err_c} > {tol}")
+    check(err_a <= tol_a, f"block_sweep acc_out: {err_a} > {tol_a}")
+    zero = (Qnew == 0).all(0)
+    check(bool((C[zero] == 0).all()), "block_sweep: a zero column of Qnew "
+          "gave a nonzero row of C")
+    emit("kernels", kernel="block_sweep", dtype=str(S.dtype),
+         shape=list(S.shape), p=p, max_abs_err_c=err_c, tol_c=tol,
+         max_abs_err_acc=err_a, tol_acc=tol_a)
+    return err_c
+
+
+def check_imgs_panel(V, Q) -> float:
+    from repro_torch.kernels.imgs_panel.ops import imgs_panel
+    from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
+
+    Vo, C = imgs_panel(V, Q)
+    Vr, Cr = imgs_panel_ref(V, Q)
+    torch.cuda.synchronize()
+    tol = sum_tol(Q.dtype, Q.shape[0]) * float(
+        torch.linalg.vector_norm(V, dim=0).max())
+    err = max(float((C - Cr).abs().max()), float((Vo - Vr).abs().max()))
+    check(err <= tol, f"imgs_panel: {err} > {tol}")
+    emit("kernels", kernel="imgs_panel", dtype=str(Q.dtype),
+         shape=list(Q.shape), p=V.shape[1], max_abs_err=err, tol=tol)
+    return err
+
+
 def check_imgs_project(v, Q) -> float:
     from repro_torch.kernels.imgs_project.ops import imgs_project
     from repro_torch.kernels.imgs_project.ref import imgs_project_ref
@@ -161,11 +212,54 @@ def rand(gen, shape, dtype, dev):
     return x.to(dtype).to(dev)
 
 
-def kernel_phase(S, dev) -> dict:
-    """Every kernel vs its plain version; timings at the main path's
-    shapes.  Returns the per-kernel entries of the final kernels line."""
+def macs_flops(dtype: torch.dtype) -> int:
+    """Flops of one multiply-add: 8 in complex, 2 in real."""
+    return 8 if dtype.is_complex else 2
+
+
+def timed(name, shape, dtype, nbytes, flops, err, reps, kernel, plain,
+          library) -> dict:
+    """Times of the kernel, its plain version and the library yardstick
+    (best of ``reps``), the bound; one kernels line."""
+    b = bound(nbytes, flops)
+    entry = {"ms": time_ms(kernel, reps), "plain_ms": time_ms(plain, reps),
+             "library_ms": time_ms(library, reps), "bound_ms": b[0],
+             "bound_by": b[1], "max_abs_err": err}
+    emit("kernels", kernel=name, timing_shape=shape, dtype=str(dtype),
+         achieved_gb_s=nbytes / (entry["ms"] * 1e-3) / 1e9, **entry)
+    return entry
+
+
+def time_greedy_update(S, gen, dev) -> dict:
+    """greedy_update at full width, on the GW snapshots themselves (real
+    residuals may have near-ties: the argmax is checked through max_res)."""
     from repro_torch.kernels.greedy_update.ops import greedy_update
     from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+
+    q = rand(gen, (N,), S.dtype, dev)
+    q = q / torch.linalg.vector_norm(q)
+    norms = torch.linalg.vector_norm(S, dim=0) ** 2
+    acc = torch.rand(M, generator=gen, dtype=torch.float64).to(
+        norms.dtype).to(dev) * 0.5
+    err = check_greedy_update(S, q, acc, norms, exact_argmax=False)
+    qc = q.conj().resolve_conj()
+    # bytes: S, q, acc, norms read once; c, acc_out written once
+    nbytes = S.nbytes + q.nbytes + 2 * acc.nbytes + norms.nbytes \
+        + M * S.element_size()
+    return timed("greedy_update", [N, M], S.dtype, nbytes,
+                 macs_flops(S.dtype) * N * M, err, 10,
+                 lambda: greedy_update(q, S, acc, norms),
+                 lambda: greedy_update_ref(q, S, acc, norms),
+                 lambda: torch.mv(S.mT, qc))
+
+
+def kernel_phase(S, dev) -> dict:
+    """Every kernel vs its plain version; timings at the build paths'
+    shapes.  Returns the per-kernel entries of the final kernels line."""
+    from repro_torch.kernels.block_sweep.ops import block_sweep
+    from repro_torch.kernels.block_sweep.ref import block_sweep_ref
+    from repro_torch.kernels.imgs_panel.ops import imgs_panel
+    from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
     from repro_torch.kernels.imgs_project.ops import imgs_project
     from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 
@@ -178,49 +272,72 @@ def kernel_phase(S, dev) -> dict:
         for shape in ((33, 17), (513, 37)):
             Q = torch.linalg.qr(rand(gen, shape, dtype, dev))[0].contiguous()
             check_imgs_project(rand(gen, (shape[0],), dtype, dev), Q)
+        # p below, at and above the kernels' widest panel of 32; a zero
+        # column stands for a rejected candidate / an empty slot
+        for n, m, p in ((17, 33, 1), (300, 700, 3), (257, 130, 8),
+                        (129, 257, 33)):
+            Qnew = torch.linalg.qr(rand(gen, (n, p), dtype, dev))[0]
+            Qnew[:, p // 2] = 0
+            acc = torch.rand(m, generator=gen, dtype=torch.float64).to(
+                dtype.to_real()).to(dev)
+            check_block_sweep(Qnew.contiguous(), rand(gen, (n, m), dtype, dev),
+                              acc)
+        for n, k, p in ((33, 17, 1), (513, 37, 3), (300, 40, 8),
+                        (300, 40, 33)):
+            Q = torch.linalg.qr(rand(gen, (n, k), dtype, dev))[0]
+            Q[:, k // 2] = 0
+            check_imgs_panel(rand(gen, (n, p), dtype, dev), Q.contiguous())
 
-    # greedy_update at full width, on the GW snapshots themselves (real
-    # residuals may have near-ties: the argmax is checked through max_res)
-    q = rand(gen, (N,), S.dtype, dev)
-    q = q / torch.linalg.vector_norm(q)
-    norms = torch.linalg.vector_norm(S, dim=0) ** 2
-    acc = torch.rand(M, generator=gen, dtype=torch.float64).to(
-        norms.dtype).to(dev) * 0.5
-    err_gu = check_greedy_update(S, q, acc, norms, exact_argmax=False)
-    qc = q.conj().resolve_conj()
-    # bytes: S, q, acc, norms read once; c, acc_out written once
-    gu_bytes = S.nbytes + q.nbytes + 2 * acc.nbytes + norms.nbytes \
-        + M * S.element_size()
-    b_gu = bound(gu_bytes, 8 * N * M)
-    gu = {
-        "ms": time_ms(lambda: greedy_update(q, S, acc, norms), 10),
-        "plain_ms": time_ms(lambda: greedy_update_ref(q, S, acc, norms), 10),
-        "library_ms": time_ms(lambda: torch.mv(S.mT, qc), 10),
-        "bound_ms": b_gu[0], "bound_by": b_gu[1], "max_abs_err": err_gu,
-    }
+    out = {"greedy_update": time_greedy_update(S, gen, dev)}
+    # the f32 case of greedy_update (greedy_update_real on the TPU) at the
+    # same width, on the real part of the snapshots; not on the GW path
+    S32 = S.real.contiguous()
+    time_greedy_update(S32, gen, dev)
+    del S32
+    torch.cuda.empty_cache()
 
-    # imgs_project at the main path's (N, max_k) with a half-filled basis
+    # imgs_project at the greedy path's (N, max_k) with a half-filled basis
     Q = torch.zeros((N, MAX_K), dtype=S.dtype, device=dev)
     Q[:, :MAX_K // 2] = torch.linalg.qr(
         rand(gen, (N, MAX_K // 2), S.dtype, dev))[0]
     v = rand(gen, (N,), S.dtype, dev)
-    err_ip = check_imgs_project(v, Q)
     # bytes: Q and v read once; c and v' written once
-    ip_bytes = Q.nbytes + 2 * v.nbytes + MAX_K * Q.element_size()
-    b_ip = bound(ip_bytes, 16 * N * MAX_K)
-    ip = {
-        "ms": time_ms(lambda: imgs_project(v, Q), 50),
-        "plain_ms": time_ms(lambda: imgs_project_ref(v, Q), 50),
-        "library_ms": time_ms(
-            lambda: torch.addmv(v, Q, torch.mv(Q.mH, v), alpha=-1), 50),
-        "bound_ms": b_ip[0], "bound_by": b_ip[1], "max_abs_err": err_ip,
-    }
-    for name, entry, shape, nbytes in (
-            ("greedy_update", gu, [N, M], gu_bytes),
-            ("imgs_project", ip, [N, MAX_K], ip_bytes)):
-        emit("kernels", kernel=name, timing_shape=shape, dtype=str(S.dtype),
-             achieved_gb_s=nbytes / (entry["ms"] * 1e-3) / 1e9, **entry)
-    return {"greedy_update": gu, "imgs_project": ip}
+    out["imgs_project"] = timed(
+        "imgs_project", [N, MAX_K], S.dtype,
+        Q.nbytes + 2 * v.nbytes + MAX_K * Q.element_size(),
+        2 * macs_flops(S.dtype) * N * MAX_K, check_imgs_project(v, Q), 50,
+        lambda: imgs_project(v, Q), lambda: imgs_project_ref(v, Q),
+        lambda: torch.addmv(v, Q, torch.mv(Q.mH, v), alpha=-1))
+
+    # block_sweep at the blocked path's (N, M) and p
+    Qnew = torch.linalg.qr(rand(gen, (N, BLOCK_P), S.dtype, dev))[0] \
+        .contiguous()
+    acc = torch.rand(M, generator=gen, dtype=torch.float64).to(
+        S.dtype.to_real()).to(dev) * 0.5
+    # bytes: S, Qnew, acc read once; C, acc_out written once
+    out["block_sweep"] = timed(
+        "block_sweep", [N, M, BLOCK_P], S.dtype,
+        S.nbytes + Qnew.nbytes + 2 * acc.nbytes
+        + BLOCK_P * M * S.element_size(),
+        macs_flops(S.dtype) * BLOCK_P * N * M,
+        check_block_sweep(Qnew, S, acc), 10,
+        lambda: block_sweep(Qnew, S, acc),
+        lambda: block_sweep_ref(Qnew, S, acc),
+        lambda: torch.matmul(Qnew.mH, S))
+
+    # imgs_panel at the blocked path's (N, max_k + p) slots, half filled
+    K = MAX_K + BLOCK_P
+    Q = torch.zeros((N, K), dtype=S.dtype, device=dev)
+    Q[:, :K // 2] = torch.linalg.qr(rand(gen, (N, K // 2), S.dtype, dev))[0]
+    V = rand(gen, (N, BLOCK_P), S.dtype, dev)
+    # bytes: Q and V read once; C and V' written once
+    out["imgs_panel"] = timed(
+        "imgs_panel", [N, K, BLOCK_P], S.dtype,
+        Q.nbytes + 2 * V.nbytes + K * BLOCK_P * Q.element_size(),
+        2 * macs_flops(S.dtype) * N * K * BLOCK_P, check_imgs_panel(V, Q),
+        50, lambda: imgs_panel(V, Q), lambda: imgs_panel_ref(V, Q),
+        lambda: torch.addmm(V, Q, torch.mm(Q.mH, V), alpha=-1))
+    return out
 
 
 # ---------------------------------------------------------------- main ----
@@ -234,8 +351,20 @@ def main() -> None:
     from repro_torch.gw import frequency_grid
     from repro_torch.gw.waveform import taylorf2_batch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.block_sweep import ops as bs_ops
     from repro_torch.kernels.greedy_update import ops as gu_ops
+    from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_project import ops as ip_ops
+
+    counters = {"greedy_update": gu_ops, "imgs_project": ip_ops,
+                "block_sweep": bs_ops, "imgs_panel": pp_ops}
+
+    def reset_counts():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read_counts():
+        return {name: mod.launches for name, mod in counters.items()}
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -268,43 +397,55 @@ def main() -> None:
 
     timings = kernel_phase(S, dev)
 
-    # --- the main path: build_basis at full width, counts from 0
-    gu_ops.launches = 0
-    ip_ops.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    basis = build_basis(source=S, strategy="greedy", tau=TAU, max_k=MAX_K,
-                        chunk=16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"greedy_update": gu_ops.launches,
-                "imgs_project": ip_ops.launches}
-    k = basis.k
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path was not launched: {launches}")
-    check(5 <= k <= MAX_K and np.all(np.isfinite(basis.errs)),
-          f"bad rank {k}")
-    eps = torch.finfo(torch.float32).eps
-    Q64 = basis.Q.to(torch.complex128)
-    defect = float(torch.linalg.matrix_norm(
-        Q64.mH @ Q64 - torch.eye(k, dtype=Q64.dtype, device=dev), ord=2))
-    defect_bound = 100 * 2.0 * eps * math.sqrt(k)
-    check(defect <= defect_bound, f"orthogonality {defect} > {defect_bound}")
     cols = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :8192].to(dev)
-    pce = float(per_column_errors(S.index_select(1, cols), basis.Q).max())
-    last = float(basis.errs[-1])
-    check(pce <= 1.5 * last, f"per-column error {pce} > 1.5 * {last}")
-    emit("build_basis", k=k, stop=basis.provenance["stop"],
-         wall_s=wall, s_per_basis=wall / k,
-         swept_gb_s=launches["greedy_update"] * S.nbytes / wall / 1e9,
-         launches=launches, orthogonality=defect,
-         orthogonality_bound=defect_bound, max_sampled_col_err=pce,
-         last_err=last, col_err_bound=1.5 * last,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         backend=basis.provenance["backend"],
-         device=basis.provenance["device"])
+
+    def drive(phase, sweeps_with, path_kernels, **spec):
+        """One full-width build through the front door, its kernels'
+        launches counted from 0 just before it; checks orthogonality and
+        the error on 8192 sampled columns; emits the phase line."""
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = build_basis(source=S, tau=TAU, max_k=MAX_K, chunk=16, **spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        k = b.k
+        check(all(launches[n] > 0 for n in path_kernels),
+              f"{phase}: a kernel of the path was not launched: {launches}")
+        check(5 <= k <= MAX_K and np.all(np.isfinite(b.errs)),
+              f"{phase}: bad rank {k}")
+        eps = torch.finfo(torch.float32).eps
+        Q64 = b.Q.to(torch.complex128)
+        defect = float(torch.linalg.matrix_norm(
+            Q64.mH @ Q64 - torch.eye(k, dtype=Q64.dtype, device=dev),
+            ord=2))
+        defect_bound = 100 * 2.0 * eps * math.sqrt(k)
+        check(defect <= defect_bound,
+              f"{phase}: orthogonality {defect} > {defect_bound}")
+        pce = float(per_column_errors(S.index_select(1, cols), b.Q).max())
+        last = float(b.errs[-1])
+        check(pce <= 1.5 * last,
+              f"{phase}: per-column error {pce} > 1.5 * {last}")
+        emit(phase, k=k, stop=b.provenance["stop"], tau=TAU,
+             block_p=b.provenance["block_p"], wall_s=wall,
+             s_per_basis=wall / k,
+             swept_gb_s=launches[sweeps_with] * S.nbytes / wall / 1e9,
+             launches=launches, orthogonality=defect,
+             orthogonality_bound=defect_bound, max_sampled_col_err=pce,
+             last_err=last, col_err_bound=1.5 * last,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             backend=b.provenance["backend"],
+             device=b.provenance["device"])
+        return b, launches
+
+    # --- the greedy path: build_basis at full width
+    basis, launches = drive("build_basis", "greedy_update",
+                            ("greedy_update", "imgs_project"),
+                            strategy="greedy")
+    k = basis.k
 
     # --- artifact: save, load, bit-equal; EIM
     with tempfile.TemporaryDirectory() as tmp:
@@ -358,15 +499,36 @@ def main() -> None:
          max_rel_err=float(np.max(rel)), rel_err_bound=1e-2,
          max_interp_err=float(i_err.max()), k=k)
 
+    # --- the blocked path: the greedy basis freed first
+    del basis, back, omega, interp
+    torch.cuda.empty_cache()
+    blk, blk_launches = drive("block_build", "block_sweep",
+                              ("block_sweep", "imgs_panel", "imgs_project"),
+                              strategy="block_greedy", block_p=BLOCK_P)
+    # pivot staleness costs at most ~15% more bases (the reference's
+    # bound, tests/test_block_greedy.py) plus one block of headroom
+    check(5 <= blk.k <= int(1.15 * k) + BLOCK_P,
+          f"block_build: k {blk.k} outside [5, 1.15 * {k} + {BLOCK_P}]")
+    check(blk.provenance["block_p"] == BLOCK_P,
+          f"block_build: provenance block_p {blk.provenance['block_p']}")
+    del blk
+
     kernels = []
-    for name, src, replaces in (
+    for name, src, replaces, path in (
             ("greedy_update", "src/repro_torch/csrc/greedy_update.cu",
-             "src/repro/kernels/greedy_update/kernel.py:108,147"),
+             "src/repro/kernels/greedy_update/kernel.py:108,147", launches),
             ("imgs_project", "src/repro_torch/csrc/imgs_project.cu",
-             "src/repro/kernels/imgs_project/kernel.py:67")):
+             "src/repro/kernels/imgs_project/kernel.py:67", launches),
+            ("block_sweep", "src/repro_torch/csrc/block_sweep.cu",
+             "src/repro/kernels/block_sweep/kernel.py:86,119", blk_launches),
+            ("imgs_panel", "src/repro_torch/csrc/imgs_panel.cu",
+             "src/repro/kernels/imgs_panel/kernel.py:76", blk_launches)):
         t = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": path[name],
+                        "launches_by_path": {
+                            "greedy": launches[name],
+                            "block_greedy": blk_launches[name]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

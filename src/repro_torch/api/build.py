@@ -1,10 +1,12 @@
 """`build_basis`: the front door of the port.
 
-Port of :mod:`repro.api.build` for the resident greedy strategy.
-``strategy="auto"`` resolves to ``"greedy"`` (the only ported strategy)
-and logs the choice on logger ``repro_torch.api``.  The greedy build runs
-:func:`repro_torch.core.greedy.rb_greedy`, so the artifact's arrays equal
-``rb_greedy``'s (trimmed) output.
+Port of :mod:`repro.api.build` for the resident strategies: ``greedy``
+runs :func:`repro_torch.core.greedy.rb_greedy` and ``block_greedy`` runs
+:func:`repro_torch.core.block_greedy._rb_greedy_block_impl`, so the
+artifact's arrays equal the driver's (trimmed) output.
+``strategy="auto"`` resolves to ``"greedy"`` (the roofline model that picks
+the blocked path is not ported yet) and logs the choice on logger
+``repro_torch.api``.
 """
 
 from __future__ import annotations
@@ -24,14 +26,21 @@ from repro_torch.device import resolve_device
 logger = logging.getLogger("repro_torch.api")
 
 
-def _trim_greedy(res):
+# Each builder returns (Q, pivots, errs, R, k, extras): the arrays trimmed
+# to the accepted rank, and a JSON-serializable dict merged into the
+# artifact provenance (the terminal stop code; the adaptive blocked
+# driver's width trajectory).
+
+
+def _trim_greedy(res, extras=None):
     from repro_torch.core.greedy import STOP_NAMES
 
     k = int(res.k)
+    extras = dict(extras or {})
+    extras["stop"] = STOP_NAMES.get(int(res.stop), str(int(res.stop)))
     return (res.Q[:, :k].contiguous(),
             res.pivots[:k].cpu().numpy(), res.errs[:k].cpu().numpy(),
-            res.R[:k].cpu().numpy(), k,
-            {"stop": STOP_NAMES.get(int(res.stop), str(int(res.stop)))})
+            res.R[:k].cpu().numpy(), k, extras)
 
 
 def _build_greedy(spec, S, ckpt_dir=None):
@@ -44,6 +53,31 @@ def _build_greedy(spec, S, ckpt_dir=None):
         chunk=spec.chunk, backend=spec.backend,
         checkpoint_dir=ckpt_dir, resume=spec.resume, device=S.device,
     ))
+
+
+def _build_block_greedy(spec, S, ckpt_dir=None):
+    from repro_torch.core.block_greedy import _rb_greedy_block_impl
+
+    # spec.chunk counts greedy ITERATIONS per host sync; the blocked
+    # driver's chunk counts BLOCKS of block_p, so divide to keep the
+    # cadence the user configured.
+    diag = {} if spec.adaptive_block else None
+    res = _rb_greedy_block_impl(
+        S, tau=spec.tau, p=spec.block_p, max_k=spec.max_k,
+        kappa=spec.kappa, max_passes=spec.max_passes, refresh=spec.refresh,
+        refresh_safety=spec.refresh_safety, backend=spec.backend,
+        chunk=max(1, spec.chunk // max(spec.block_p, 1)),
+        callback=spec.callback, panel=spec.panel_ortho,
+        adaptive=spec.adaptive_block, diagnostics=diag,
+        checkpoint_dir=ckpt_dir, resume=spec.resume, device=S.device,
+    )
+    return _trim_greedy(res, diag)
+
+
+_BUILDERS = {
+    "greedy": _build_greedy,
+    "block_greedy": _build_block_greedy,
+}
 
 
 def build_basis(spec: ReductionSpec | None = None,
@@ -100,12 +134,12 @@ def build_basis(spec: ReductionSpec | None = None,
     strategy = spec.strategy
     if strategy == "auto":
         strategy = "greedy"
-        logger.info("auto strategy -> 'greedy' (the only strategy ported "
-                    "to repro_torch)")
+        logger.info("auto strategy -> 'greedy' (the roofline model that "
+                    "picks the blocked path is not ported to repro_torch)")
     S = materialize_source(spec.source, device)
 
     t0 = time.perf_counter()
-    Q, pivots, errs, R, k, extras = _build_greedy(spec, S, ckpt_dir)
+    Q, pivots, errs, R, k, extras = _BUILDERS[strategy](spec, S, ckpt_dir)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -121,7 +155,7 @@ def build_basis(spec: ReductionSpec | None = None,
         "shape": [int(S.shape[0]), int(S.shape[1])],
         "tau": spec.tau,
         "max_k": spec.max_k,
-        "block_p": 1,
+        "block_p": spec.block_p,
         "wall_time_s": wall,
         "spec": spec.describe(),
         "repro_version": __version__,

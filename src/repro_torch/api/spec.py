@@ -1,9 +1,11 @@
 """`ReductionSpec`: one declarative description of a basis build.
 
-Port of :mod:`repro.api.spec`, limited to the fields the greedy builder
-reads, plus ``device``.  The other strategies of the reference are named
-in ``STRATEGIES``; asking for one that is not ported yet raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+Port of :mod:`repro.api.spec`, limited to the fields the ported builders
+(``greedy``, ``block_greedy``) read, plus ``device``.  The other strategies
+of the reference (``pod``, ``mgs``, ``streamed``, ``randomized``,
+``sketch+greedy``, ``batched``, ``distributed``) are named in
+``STRATEGIES``; asking for one of them raises ``NotImplementedError``
+naming the ``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ _NOT_PORTED = {
     "pod": "queue 1 item 4 (paper oracles pod/mgs/rrqr)",
     "mgs": "queue 1 item 4 (paper oracles pod/mgs/rrqr)",
     "streamed": "queue 1 item 1 (WaveformProvider and the streamed driver)",
-    "block_greedy": "queue 1 item 3 (blocked path)",
     "randomized": "queue 1 item 5 (randomized sketch)",
     "sketch+greedy": "queue 1 item 5 (randomized sketch)",
     "batched": "queue 1 item 6 (batched many-basis greedy)",
@@ -38,14 +39,24 @@ class ReductionSpec:
       source: the snapshot matrix — anything
         :func:`repro_torch.data.providers.as_provider` accepts (a numpy
         array, a torch tensor, a ``.npy`` path or a provider).
-      strategy: ``"greedy"``, or ``"auto"`` (which resolves to
-        ``"greedy"``).  The reference's other strategies raise
-        ``NotImplementedError``.
+      strategy: ``"greedy"``, ``"block_greedy"``, or ``"auto"`` (which
+        resolves to ``"greedy"``).  The reference's other strategies
+        raise ``NotImplementedError``.
       tau: greedy stopping tolerance (the paper's ``tau``).
       max_k: basis-size cap (default ``min(N, M)``).
       backend: hot-loop backend (:mod:`repro_torch.core.backend`):
         ``"auto" | "ref"`` or None (env/default).
-      chunk: greedy iterations per host sync.
+      chunk: greedy iterations per host sync (``block_greedy`` runs
+        ``max(1, chunk // block_p)`` blocks per sync).
+      block_p: pivots per sweep of S (``block_greedy``); ``1`` is the
+        paper's stepwise selection, > 1 amortizes each read of S over
+        block_p bases at the cost of pivot staleness.
+      panel_ortho: orthogonalize each block through the BLAS-3 panel path
+        (:func:`repro_torch.core.greedy.panel_imgs_orthogonalize`) instead
+        of p sequential GS chains (``block_greedy``, ``block_p > 1``).
+      adaptive_block: treat ``block_p`` as a ceiling and retune the live
+        width between chunks from the rank guard's rejection rate; the
+        width trajectory lands in the provenance (``p_trajectory``).
       kappa, max_passes: Hoffmann iterated-GS controls.
       refresh, refresh_safety: Eq.-(6.3) exact-refresh policy
         (``"never"`` is the paper-faithful mode).
@@ -65,6 +76,9 @@ class ReductionSpec:
     max_k: Optional[int] = None
     backend: Optional[str] = None
     chunk: int = 16
+    block_p: int = 1
+    panel_ortho: bool = True
+    adaptive_block: bool = False
     kappa: float = 2.0
     max_passes: int = 3
     refresh: str = "auto"

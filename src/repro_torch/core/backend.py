@@ -1,18 +1,25 @@
 """Backend dispatch for the greedy hot-loop primitives.
 
-The greedy driver spends its time in two primitives:
+The greedy driver spends its time in two primitives, the blocked driver
+in two more:
 
   pivot_update   the paper's Eq.-(6.3) sweep: ``c = q^H S``,
                  ``acc + |c|^2``, residual argmax — one read of S per basis
                  vector (Fig. 6.1a),
   project_pass   one classical-GS projection ``c = Q^H v``,
-                 ``v' = v - Q c`` (Fig. 6.1b).
+                 ``v' = v - Q c`` (Fig. 6.1b),
+  block_sweep    the blocked sweep ``C = Qnew^H S``,
+                 ``acc + sum_i |C_i|^2`` — one read of S per p bases,
+  panel_project  one classical-GS projection of a whole (N, p) panel,
+                 ``C = Q^H V``, ``V' = V - Q C``.
 
 Two backends:
 
   ``auto``  the hand-written CUDA kernels for CUDA tensors
             (:mod:`repro_torch.kernels.greedy_update`,
-            :mod:`repro_torch.kernels.imgs_project`), their plain PyTorch
+            :mod:`repro_torch.kernels.imgs_project`,
+            :mod:`repro_torch.kernels.block_sweep`,
+            :mod:`repro_torch.kernels.imgs_panel`), their plain PyTorch
             versions for CPU tensors.  A CUDA tensor gets the kernel or an
             error, never the plain version.
   ``ref``   the literal plain ops (``kernels/*/ref.py``) on any device, on
@@ -28,8 +35,12 @@ import os
 
 import torch
 
+from repro_torch.kernels.block_sweep.ops import block_sweep as _block_sweep
+from repro_torch.kernels.block_sweep.ref import block_sweep_ref
 from repro_torch.kernels.greedy_update.ops import greedy_update
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+from repro_torch.kernels.imgs_panel.ops import imgs_panel
+from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 from repro_torch.kernels.imgs_project.ops import imgs_project
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 
@@ -73,3 +84,22 @@ def project_pass(v: torch.Tensor, Q: torch.Tensor,
     if resolve_backend(backend) == "ref":
         return imgs_project_ref(v, Q)
     return imgs_project(v, Q)
+
+
+def block_sweep(Qnew: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
+                backend: str | None = None):
+    """Blocked Eq.-(6.3) sweep: returns ``(Qnew^H S, acc + sum_i |C_i|^2)``.
+
+    ``acc`` is not modified.
+    """
+    if resolve_backend(backend) == "ref":
+        return block_sweep_ref(Qnew, S, acc)
+    return _block_sweep(Qnew, S, acc)
+
+
+def panel_project(V: torch.Tensor, Q: torch.Tensor,
+                  backend: str | None = None):
+    """One classical-GS panel pass: returns ``(V - Q Q^H V, Q^H V)``."""
+    if resolve_backend(backend) == "ref":
+        return imgs_panel_ref(V, Q)
+    return imgs_panel(V, Q)

@@ -120,6 +120,78 @@ def imgs_orthogonalize(v: torch.Tensor, Q: torch.Tensor, kappa: float = 2.0,
     return v_cur / safe.to(v_cur.dtype), coeffs, norm_cur, n
 
 
+def panel_imgs_orthogonalize(V: torch.Tensor, Q: torch.Tensor,
+                             kappa: float = 2.0, max_passes: int = 3,
+                             thresh=0.0, backend: str | None = None):
+    """BLAS-3 panel orthogonalization: p candidates against Q at once.
+
+    The steps of the reference (:func:`repro.core.greedy`'s namesake):
+
+    1. iterated classical-GS projection of the whole (N, p) panel against
+       ``Q`` (:func:`repro_torch.core.backend.panel_project`), with
+       Hoffmann's kappa re-run test per column; the ``max_passes - 1``
+       re-run passes always run, and a column past its test keeps its
+       value (``torch.where``), so values and pass counts equal the
+       reference's conditional loop;
+    2. a within-panel sequential sweep: candidate i against the finished
+       panel columns < i, through :func:`imgs_orthogonalize`;
+    3. the rank guard: a candidate whose residual norm is not strictly
+       above ``thresh`` becomes a zero column;
+    4. the BCGS2 re-orthogonalization cycle (a second vs-Q panel pass and
+       one within-panel sweep on the normalized panel), needed when an
+       accepted candidate lost more than ``kappa`` in step 2.  It is
+       always computed and selected with ``torch.where``, so nothing
+       syncs.
+
+    Returns ``(P, oks, rnorms, n_passes)``: the (N, p) panel (rejected
+    columns zero), the (p,) rank-guard verdicts, the (p,) residual norms
+    after steps 1-3 and the (p,) int32 pass counts (vs-Q passes, plus the
+    re-orthogonalization cycle, plus within-panel re-runs beyond the
+    first).
+    """
+    p = V.shape[1]
+    norm_prev = torch.linalg.vector_norm(V, dim=0)
+    V_cur, _ = _backend.panel_project(V, Q, backend=backend)
+    norm_cur = torch.linalg.vector_norm(V_cur, dim=0)
+    n_col = torch.ones((p,), dtype=torch.int32, device=V.device)
+    for _ in range(1, max_passes):
+        rerun = (norm_cur < norm_prev / kappa) & (n_col < max_passes)
+        V_next, _ = _backend.panel_project(V_cur, Q, backend=backend)
+        V_cur = torch.where(rerun, V_next, V_cur)
+        norm_prev = torch.where(rerun, norm_cur, norm_prev)
+        norm_cur = torch.where(rerun, torch.linalg.vector_norm(V_next, dim=0),
+                               norm_cur)
+        n_col = n_col + rerun.to(n_col.dtype)
+
+    P = torch.zeros_like(V)
+    oks, rnorms, extra = [], [], []
+    for i in range(p):
+        q, _, rnorm, n_pass = imgs_orthogonalize(
+            V_cur[:, i].contiguous(), P, kappa, max_passes, backend=backend)
+        ok = rnorm > thresh
+        P[:, i] = torch.where(ok, q, torch.zeros_like(q))
+        oks.append(ok)
+        rnorms.append(rnorm)
+        extra.append(n_pass - 1)  # re-runs beyond the unconditional pass
+    oks = torch.stack(oks)
+    rnorms = torch.stack(rnorms)
+
+    need_reortho = torch.any(oks & (rnorms * kappa < norm_cur))
+    P2, _ = _backend.panel_project(P, Q, backend=backend)
+    P_re = torch.zeros_like(P)
+    for i in range(p):
+        v, _ = _backend.project_pass(P2[:, i].contiguous(), P_re,
+                                     backend=backend)
+        nrm = torch.linalg.vector_norm(v)
+        safe = torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
+        P_re[:, i] = torch.where(oks[i], v / safe.to(v.dtype),
+                                 torch.zeros_like(v))
+    P = torch.where(need_reortho, P_re, P)
+    n_passes = n_col + need_reortho.to(torch.int32) + torch.stack(
+        extra).to(torch.int32)
+    return P, oks, rnorms, n_passes
+
+
 def _column_norms_sq(S: torch.Tensor, col_chunk: int = 8192) -> torch.Tensor:
     """sum_n |S[n, i]|^2 per column, in column chunks (no S-sized temp)."""
     out = torch.empty(S.shape[1], dtype=S.dtype.to_real(), device=S.device)
@@ -145,12 +217,12 @@ def greedy_init(S: torch.Tensor, max_k: int) -> GreedyState:
     )
 
 
-def _put(buf: torch.Tensor, dim: int, kk: torch.Tensor, new: torch.Tensor,
+def _put(buf: torch.Tensor, dim: int, idx: torch.Tensor, new: torch.Tensor,
          active: torch.Tensor) -> None:
-    """``buf[kk] = new`` along ``dim`` where ``active``, in place; a device
-    index, so nothing syncs."""
-    old = buf.index_select(dim, kk).squeeze(dim)
-    buf.index_copy_(dim, kk, torch.where(active, new, old).unsqueeze(dim))
+    """``buf[idx] = new`` along ``dim`` where ``active``, in place; ``idx``
+    is a device index, so nothing syncs."""
+    old = buf.index_select(dim, idx)
+    buf.index_copy_(dim, idx, torch.where(active, new, old))
 
 
 def _step(S, state: GreedyState, active, kappa, max_passes, backend):
@@ -168,13 +240,13 @@ def _step(S, state: GreedyState, active, kappa, max_passes, backend):
     c, acc, _, _ = _backend.pivot_update(q, S, state.acc, state.norms_sq,
                                          backend=backend)
     kk = state.k.view(1)
-    _put(state.Q, 1, kk, q, active)
-    _put(state.R, 0, kk, c, active)
+    _put(state.Q, 1, kk, q.unsqueeze(1), active)
+    _put(state.R, 0, kk, c.unsqueeze(0), active)
     state.acc.copy_(torch.where(active, acc, state.acc))
-    _put(state.pivots, 0, kk, j.to(torch.int32), active)
-    _put(state.errs, 0, kk, err, active)
-    _put(state.n_passes, 0, kk, n_pass, active)
-    _put(state.rnorms, 0, kk, rnorm.to(state.rnorms.dtype), active)
+    _put(state.pivots, 0, kk, j.to(torch.int32).view(1), active)
+    _put(state.errs, 0, kk, err.view(1), active)
+    _put(state.n_passes, 0, kk, n_pass.view(1), active)
+    _put(state.rnorms, 0, kk, rnorm.to(state.rnorms.dtype).view(1), active)
     return state._replace(k=state.k + active.to(state.k.dtype)), err, rnorm
 
 

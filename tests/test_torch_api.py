@@ -79,13 +79,59 @@ def test_auto_strategy_is_greedy(caplog):
     assert "auto strategy -> 'greedy'" in caplog.text
 
 
-@pytest.mark.parametrize("strategy", ["pod", "block_greedy", "streamed",
+@pytest.mark.parametrize("strategy", ["pod", "randomized", "streamed",
                                       "batched"])
 def test_unported_strategy_names_roadmap(strategy):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)
     with pytest.raises(ValueError, match="unknown strategy"):
         tapi.ReductionSpec(source=np.zeros((4, 4)), strategy="nope")
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_block_greedy_front_door_matches_jax(adaptive):
+    """strategy="block_greedy" through both front doors (the reference's
+    adaptive scenario: smooth c64 family, tau 1e-3, block_p 8): rank,
+    pivots, stop and the adaptive width trajectory exact; provenance
+    carries block_p and every key the reference's has."""
+    S = _smooth(np.complex64)
+    kw = dict(source=S, strategy="block_greedy", tau=1e-3, block_p=8,
+              adaptive_block=adaptive)
+    ref = japi.build_basis(**kw)
+    port = tapi.build_basis(**kw, device="cpu")
+    assert port.k == ref.k >= 5
+    np.testing.assert_array_equal(port.pivots, ref.pivots)
+    assert set(ref.provenance) <= set(port.provenance)
+    for key in ("strategy", "requested_strategy", "block_p", "stop"):
+        assert port.provenance[key] == ref.provenance[key], key
+    assert port.provenance["block_p"] == 8
+    assert port.provenance["spec"]["panel_ortho"] is True
+    if adaptive:
+        traj = port.provenance["p_trajectory"]
+        assert traj == ref.provenance["p_trajectory"]
+        assert traj[0]["p"] == 8 and any(e["p"] < 8 for e in traj)
+    else:
+        assert "p_trajectory" not in port.provenance
+    # the greedy front door records block_p 1, from its spec
+    assert tapi.build_basis(source=S, tau=1e-3, device="cpu"
+                            ).provenance["block_p"] == 1
+
+
+def test_block_greedy_workdir_resume(tmp_path):
+    """The blocked build owns a workdir like the greedy one, and its
+    artifact loads in the reference with the same pivots."""
+    S = _smooth(np.float64)
+    wd = str(tmp_path / "w")
+    b = tapi.build_basis(source=S, strategy="block_greedy", tau=1e-6,
+                         block_p=4, chunk=8, workdir=wd, device="cpu")
+    assert not os.path.exists(os.path.join(wd, "build"))
+    again = tapi.build_basis(source=S, strategy="block_greedy", tau=1e-6,
+                             block_p=4, chunk=8, workdir=wd, resume=True,
+                             device="cpu")
+    assert torch.equal(again.Q, b.Q)
+    j = japi.ReducedBasis.load(wd)
+    np.testing.assert_array_equal(j.pivots, b.pivots)
+    assert j.provenance["block_p"] == 4
 
 
 def test_workdir_lifecycle(tmp_path):
@@ -241,7 +287,16 @@ def test_entry_points_refuse_cpu_without_being_asked(no_cuda, tmp_path):
     from repro_torch.data.providers import materialize_source
 
     S = _smooth()
+    from repro_torch.core.block_greedy import (
+        _rb_greedy_block_impl, rb_greedy_block_stepwise,
+    )
+
     for call in (lambda: tapi.build_basis(source=S, tau=1e-4),
+                 lambda: tapi.build_basis(source=S, tau=1e-4,
+                                          strategy="block_greedy",
+                                          block_p=4),
+                 lambda: _rb_greedy_block_impl(S, 1e-4),
+                 lambda: rb_greedy_block_stepwise(S, 1e-4),
                  lambda: rb_greedy(S, 1e-4),
                  lambda: rb_greedy_stepwise(S, 1e-4),
                  lambda: materialize_source(S),

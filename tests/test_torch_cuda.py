@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.block_sweep import ops as bs_ops
+from repro_torch.kernels.block_sweep.ref import block_sweep_ref
 from repro_torch.kernels.greedy_update import ops as gu_ops
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+from repro_torch.kernels.imgs_panel import ops as pp_ops
+from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 from repro_torch.kernels.imgs_project import ops as ip_ops
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 
@@ -128,3 +132,76 @@ def test_greedy_driver_on_card_matches_cpu(cuda, dtype):
     assert gu_ops.launches > n0 and ip_ops.launches > p0
     assert gpu.k == cpu.k >= 4 and gpu.stop == cpu.stop
     assert torch.equal(gpu.pivots.cpu(), cpu.pivots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(17, 33, 1), (300, 700, 3),
+                                   (1025, 4099, 8), (129, 257, 33)])
+def test_block_sweep_kernel_matches_plain(cuda, dtype, shape):
+    """C within _tol of the columns' scale (unit Qnew columns), acc_out
+    within the same relative tolerance of |C|^2; a zero column of Qnew
+    gives an exactly zero row of C."""
+    gen = torch.Generator().manual_seed(2)
+    N, M, p = shape
+    S = _rand(gen, (N, M), dtype, cuda)
+    Qnew = torch.linalg.qr(_rand(gen, (N, p), dtype, cuda))[0].contiguous()
+    Qnew[:, p // 2] = 0
+    acc = torch.rand(M, generator=gen, dtype=torch.float64).to(
+        dtype.to_real()).to(cuda)
+    n0 = bs_ops.launches
+    C, a = bs_ops.block_sweep(Qnew, S, acc)
+    torch.cuda.synchronize()
+    assert bs_ops.launches == n0 + 1
+    Cr, ar = block_sweep_ref(Qnew, S, acc)
+    tol = _tol(dtype, N) * float(torch.linalg.vector_norm(S, dim=0).max())
+    assert float((C - Cr).abs().max()) <= tol
+    assert float((a - ar).abs().max()) <= 2 * p * float(Cr.abs().max()) \
+        * tol + 4 * torch.finfo(dtype.to_real()).eps * float(ar.abs().max())
+    assert bool((C[p // 2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(17, 33, 1), (513, 37, 3),
+                                   (1000, 108, 8), (300, 40, 33)])
+def test_imgs_panel_kernel_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator().manual_seed(3)
+    N, K, p = shape
+    Q = torch.linalg.qr(_rand(gen, (N, K), dtype, cuda))[0].contiguous()
+    V = _rand(gen, (N, p), dtype, cuda)
+    n0 = pp_ops.launches
+    Vo, C = pp_ops.imgs_panel(V, Q)
+    torch.cuda.synchronize()
+    assert pp_ops.launches == n0 + 1
+    Vr, Cr = imgs_panel_ref(V, Q)
+    tol = _tol(dtype, N) * float(torch.linalg.vector_norm(V, dim=0).max())
+    assert float((C - Cr).abs().max()) <= tol
+    assert float((Vo - Vr).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float64])
+def test_block_driver_on_card_matches_cpu(cuda, dtype):
+    """The blocked driver on the card (through block_sweep, imgs_panel and
+    imgs_project) picks the CPU build's pivots on a rank-40 family with a
+    decaying spectrum and generic columns, above the cancellation floor
+    (the parity family of test_torch_block_greedy.py)."""
+    from repro_torch.core.block_greedy import _rb_greedy_block_impl
+
+    rng = np.random.default_rng(3)
+    U = np.linalg.qr(rng.standard_normal((160, 40)))[0]
+    V = rng.standard_normal((40, 120))
+    if dtype.is_complex:
+        U = U * np.exp(1j * rng.uniform(0, 2 * np.pi, (1, 40)))
+        V = V + 1j * rng.standard_normal((40, 120))
+    S = torch.from_numpy((U * np.logspace(0, -4, 40)) @ V).to(dtype)
+    tau = 1e-2 * float(torch.linalg.vector_norm(S, dim=0).max())
+    n0 = (bs_ops.launches, pp_ops.launches, ip_ops.launches)
+    gpu = _rb_greedy_block_impl(S, tau, p=8, device=cuda)
+    cpu = _rb_greedy_block_impl(S, tau, p=8, device="cpu")
+    assert bs_ops.launches > n0[0] and pp_ops.launches > n0[1] \
+        and ip_ops.launches > n0[2]
+    assert gpu.k == cpu.k >= 8 and gpu.stop == cpu.stop
+    assert torch.equal(gpu.pivots.cpu(), cpu.pivots)
+    assert torch.equal(gpu.n_ortho_passes.cpu(), cpu.n_ortho_passes)

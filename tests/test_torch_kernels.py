@@ -13,14 +13,22 @@ import pytest
 import torch
 from conftest import dtype_tol
 
+from repro.kernels.block_sweep.ops import block_sweep as pallas_block
+from repro.kernels.block_sweep.ref import block_sweep_ref as jax_block
 from repro.kernels.greedy_update.ops import greedy_update as pallas_update
 from repro.kernels.greedy_update.ref import greedy_update_ref as jax_update
+from repro.kernels.imgs_panel.ops import imgs_panel as pallas_panel
+from repro.kernels.imgs_panel.ref import imgs_panel_ref as jax_panel
 from repro.kernels.imgs_project.ops import imgs_project as pallas_project
 from repro.kernels.imgs_project.ref import imgs_project_ref as jax_project
 from repro_torch.core import backend
 from repro_torch.kernels import _build
+from repro_torch.kernels.block_sweep import ops as bs_ops
+from repro_torch.kernels.block_sweep.ref import block_sweep_ref
 from repro_torch.kernels.greedy_update import ops as gu_ops
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+from repro_torch.kernels.imgs_panel import ops as pp_ops
+from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 from repro_torch.kernels.imgs_project import ops as ip_ops
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 
@@ -28,6 +36,10 @@ LOW = [np.float32, np.complex64]
 HIGH = [np.float64, np.complex128]
 UPDATE_SHAPES = [(64, 96), (300, 700), (1024, 256), (17, 33)]
 PROJECT_SHAPES = [(128, 16), (513, 37), (1000, 100), (17, 33)]
+# (N, M, p) of the blocked sweep and (N, K, p) of the panel pass: ragged
+# edges, p below, at and above the kernels' widest panel of 32
+BLOCK_SHAPES = [(64, 96, 1), (300, 700, 3), (257, 130, 8), (40, 50, 33)]
+PANEL_SHAPES = [(128, 16, 1), (513, 37, 3), (1000, 108, 8), (70, 20, 33)]
 
 
 def _mk(rng, shape, dtype):
@@ -139,6 +151,79 @@ def test_imgs_project_ref_matches_jax_f64(rng, dtype, shape):
                    shape[0])
 
 
+# --------------------------------------------------------------- block_sweep
+def _block_inputs(rng, shape, dtype):
+    N, M, p = shape
+    S = _mk(rng, (N, M), dtype)
+    Qnew = np.linalg.qr(_mk(rng, (N, p), dtype))[0].astype(dtype)
+    Qnew[:, p // 2] = 0  # a rejected candidate: an exact no-op
+    acc = np.abs(rng.standard_normal(M)).astype(np.finfo(dtype).dtype)
+    return np.ascontiguousarray(Qnew), S, acc
+
+
+def _check_block(got, want, dtype, N):
+    """C within dtype_tol of its scale (N-term sums), acc_out within the
+    same relative tolerance of |C|^2; the zero column's row of C is
+    exactly zero."""
+    C, a = (np.asarray(x) for x in got)
+    Cr, ar = (np.asarray(x) for x in want)
+    tol = dtype_tol(dtype, N)
+    scale = float(np.abs(Cr).max())
+    np.testing.assert_allclose(C, Cr, rtol=tol, atol=tol * scale)
+    np.testing.assert_allclose(a, ar, rtol=tol, atol=tol * scale ** 2)
+    assert np.all(C[C.shape[0] // 2] == 0)
+
+
+@pytest.mark.parametrize("dtype", LOW)
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_block_sweep_ref_matches_jax_and_pallas(rng, dtype, shape):
+    """f32/c64: against the JAX oracle and the Pallas kernel (interpret
+    mode; it accumulates in f32 like the port)."""
+    args = _block_inputs(rng, shape, dtype)
+    got = block_sweep_ref(*_torch(*args))
+    jargs = [jnp.asarray(x) for x in args]
+    _check_block(got, jax_block(*jargs), dtype, shape[0])
+    _check_block(got, pallas_block(*jargs, interpret=True), dtype, shape[0])
+
+
+@pytest.mark.parametrize("dtype", HIGH)
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_block_sweep_ref_matches_jax_f64(rng, dtype, shape):
+    """f64/c128: against the JAX oracle only — the Pallas kernel sums
+    these in f32."""
+    args = _block_inputs(rng, shape, dtype)
+    _check_block(block_sweep_ref(*_torch(*args)),
+                 jax_block(*(jnp.asarray(x) for x in args)), dtype, shape[0])
+
+
+# ---------------------------------------------------------------- imgs_panel
+def _panel_inputs(rng, shape, dtype):
+    N, K, p = shape
+    Q = np.linalg.qr(_mk(rng, (N, K), dtype))[0].astype(dtype)
+    Q[:, K // 2] = 0  # an empty slot of the basis: an exact no-op
+    return _mk(rng, (N, p), dtype), np.ascontiguousarray(Q)
+
+
+@pytest.mark.parametrize("dtype", LOW)
+@pytest.mark.parametrize("shape", PANEL_SHAPES)
+def test_imgs_panel_ref_matches_jax_and_pallas(rng, dtype, shape):
+    V, Q = _panel_inputs(rng, shape, dtype)
+    got = imgs_panel_ref(*_torch(V, Q))
+    jargs = (jnp.asarray(V), jnp.asarray(Q))
+    _check_project(got, jax_panel(*jargs), dtype, shape[0])
+    _check_project(got, pallas_panel(*jargs, interpret=True), dtype,
+                   shape[0])
+
+
+@pytest.mark.parametrize("dtype", HIGH)
+@pytest.mark.parametrize("shape", PANEL_SHAPES)
+def test_imgs_panel_ref_matches_jax_f64(rng, dtype, shape):
+    V, Q = _panel_inputs(rng, shape, dtype)
+    _check_project(imgs_panel_ref(*_torch(V, Q)),
+                   jax_panel(jnp.asarray(V), jnp.asarray(Q)), dtype,
+                   shape[0])
+
+
 # ------------------------------------------------ wrappers and dispatch ----
 def test_wrappers_take_plain_version_on_cpu(rng):
     """On CPU tensors the wrappers are the plain versions, bit for bit,
@@ -152,6 +237,24 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     for x, y in zip(ip_ops.imgs_project(v, Q), imgs_project_ref(v, Q)):
         assert torch.equal(x, y)
     assert (gu_ops.launches, ip_ops.launches) == (n0, p0)
+
+
+def test_blocked_wrappers_take_plain_version_on_cpu(rng):
+    """The blocked path's wrappers and backend slots, on CPU tensors, are
+    the plain versions bit for bit, and launch nothing."""
+    n0, p0 = bs_ops.launches, pp_ops.launches
+    Qnew, S, acc = _torch(*_block_inputs(rng, (40, 50, 3), np.complex64))
+    want = block_sweep_ref(Qnew, S, acc)
+    for got in (bs_ops.block_sweep(Qnew, S, acc),
+                backend.block_sweep(Qnew, S, acc),
+                backend.block_sweep(Qnew, S, acc, backend="ref")):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    V, Q = _torch(*_panel_inputs(rng, (40, 7, 3), np.complex64))
+    want = imgs_panel_ref(V, Q)
+    for got in (pp_ops.imgs_panel(V, Q), backend.panel_project(V, Q),
+                backend.panel_project(V, Q, backend="ref")):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (bs_ops.launches, pp_ops.launches) == (n0, p0)
 
 
 def test_resolve_backend(monkeypatch):

@@ -1,9 +1,11 @@
-"""Where the time of the port's full-width greedy build goes, on one GPU.
+"""Where the time of the port's full-width builds goes, on one GPU.
 
-    python3 tools/profile_torch_build.py [--trace PATH]
+    python3 tools/profile_torch_build.py [--strategy block_greedy] \
+        [--trace PATH]
 
 Builds the same GW snapshot matrix as ``chip_smoke.py`` (N = 10,000,
-M = 131,072, complex64), runs ``build_basis(strategy="greedy")`` twice
+M = 131,072, complex64), runs ``build_basis(strategy=...)`` (``greedy``, or
+``block_greedy`` at the smoke's block_p) twice
 untraced (cold, then warm) and once under ``torch.profiler``, and prints one
 JSON line with the kernels' build time, the first (cold) and second
 (warm) build times, the traced build's device busy share (union of kernel
@@ -56,6 +58,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace", default=None,
                     help="keep the Chrome trace at this path")
+    ap.add_argument("--strategy", default="greedy",
+                    choices=("greedy", "block_greedy"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_build: no CUDA device")
@@ -72,11 +76,13 @@ def main() -> None:
         frequency_grid(cs.F_MIN, cs.F_MAX, cs.N),
         *chirp_grid(n_mc=cs.N_MC, n_eta=cs.N_ETA), device="cuda")
 
+    block_p = cs.BLOCK_P if args.strategy == "block_greedy" else 1
+
     def build():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        b = build_basis(source=S, strategy="greedy", tau=cs.TAU,
-                        max_k=cs.MAX_K, chunk=16)
+        b = build_basis(source=S, strategy=args.strategy, tau=cs.TAU,
+                        max_k=cs.MAX_K, chunk=16, block_p=block_p)
         torch.cuda.synchronize()
         return b, time.perf_counter() - t0
 
@@ -93,7 +99,8 @@ def main() -> None:
         prof.export_chrome_trace(trace)
         stats = kernel_stats(trace, traced_s * 1e6)
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "k": again.k,
+        "device": torch.cuda.get_device_name(0),
+        "strategy": args.strategy, "block_p": block_p, "k": again.k,
         "build_kernels_s": build_kernels_s,
         "first_build_s": first_s, "warm_build_s": again_s,
         "traced_build_s": traced_s, **stats}), flush=True)
