@@ -6,8 +6,9 @@ Drives the port's two build paths at the GW workload's full width
 (N = 10,000 frequencies, complex64, max_k = 100, M = 131,072 TaylorF2
 snapshots: 10.5 GB of S on the card) — the paper's RB-greedy build, then
 the artifact and the ROQ online stage, then the blocked build
-(``strategy="block_greedy"``, block_p = 8) — and holds each hand-written
-kernel against its plain PyTorch version.  Phases, each one JSON line:
+(``strategy="block_greedy"``, block_p = 8) — then the dense-LM serving path
+(granite-3-8b at full width, its prefill attention in the flash kernel),
+and holds each hand-written kernel against its plain PyTorch version.  Phases, each one JSON line:
 
   env        torch / CUDA versions and the card
   build      seconds to build the CUDA kernels (nvcc, at first use)
@@ -24,6 +25,18 @@ kernel against its plain PyTorch version.  Phases, each one JSON line:
   block_build  the full-width blocked build through the front door, with
              the greedy basis freed first; launches counted from 0 just
              before it, the same checks, k within the staleness bound
+
+  lm_kernels  flash_attention vs its plain version at the serve path's
+             shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16, causal) and at
+             small ones (f32/bf16/f16, D 16-256, groups 1/4/8, window 48,
+             non-causal, ragged S, Sq < Skv), each with near-uniform and
+             with peaked logits; times as above
+  serve      granite-3-8b at full width (bf16, attn_impl="flash", random
+             weights from the seed, initialized on the card, the GW S freed
+             first): ServeEngine.generate on 4 prompts of 2048 tokens, 32
+             new tokens each; launches counted from 0 just before it;
+             prefill logits against the einsum (plain) path, two greedy
+             runs equal, every logit finite
 
 Then a line listing every ported kernel, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
@@ -57,6 +70,23 @@ BLOCK_P = 8                       # the blocked path's pivots per sweep
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
+BF16_FLOPS = 989e12               # H100 SXM, bf16 / f16 tensor cores, dense
+# The serving cell: granite-3-8b at full width, 4 requests of 2048-token
+# prompts, 32 new tokens each (the KV cache holds prompt + new tokens).
+LM_ARCH = "granite-3-8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# (B, Hq, Hkv, Sq, Skv, D, causal, window) of the small flash checks:
+# groups 1, 4 and 8; ragged S; a window of 48 against key tiles of 64; Sq <
+# Skv end-aligned; non-causal, with Sq > Skv too; D 16 to 256; one query.
+FA_CASES = [
+    (2, 4, 4, 200, 200, 64, True, None),
+    (1, 8, 2, 256, 256, 128, True, None),
+    (1, 8, 1, 130, 130, 16, True, 48),
+    (2, 4, 1, 64, 300, 80, True, 48),
+    (1, 4, 2, 100, 100, 256, False, None),
+    (1, 2, 2, 80, 48, 32, False, None),
+    (1, 4, 4, 1, 77, 64, True, None),
+]
 
 
 def emit(phase: str, **fields) -> None:
@@ -83,9 +113,10 @@ def time_ms(fn, reps: int) -> float:
     return best
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def bound(nbytes: int, flops: int,
+          flops_per_s: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -218,10 +249,10 @@ def macs_flops(dtype: torch.dtype) -> int:
 
 
 def timed(name, shape, dtype, nbytes, flops, err, reps, kernel, plain,
-          library) -> dict:
+          library, flops_per_s=FP32_FLOPS) -> dict:
     """Times of the kernel, its plain version and the library yardstick
     (best of ``reps``), the bound; one kernels line."""
-    b = bound(nbytes, flops)
+    b = bound(nbytes, flops, flops_per_s)
     entry = {"ms": time_ms(kernel, reps), "plain_ms": time_ms(plain, reps),
              "library_ms": time_ms(library, reps), "bound_ms": b[0],
              "bound_by": b[1], "max_abs_err": err}
@@ -340,6 +371,246 @@ def kernel_phase(S, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------- LM kernels ----
+# q and k scales of the flash checks: 0.3 gives logits of std 0.09 (a
+# near-uniform softmax, as at initialization); 2.0 gives logits of std 4,
+# peaked, so that the running max of a row moves across key tiles and the
+# rescale of the output by alpha = exp(m_old - m_new) is far from 1.
+FA_QK_SCALES = (0.3, 2.0)
+
+
+def fa_tol(q, k, v, causal, window):
+    """The plain version r (f32, from the same rounded inputs) and the
+    elementwise tolerance of the kernel's output against it.
+
+    16-bit: the kernel differs from r by (1) P rounded to the input type
+    for the second product, each p_j off by at most u = eps / 2 of itself
+    (or half the smallest subnormal, f16), which moves o_i by at most
+    u * sum_j p_j |v_j| / l = u * attention(q, k, |v|)_i; (2) the output's
+    rounding, u |o_i|; (3) f32 sums in another order, ~1e-6 relative.  The
+    tolerance is twice that bound: eps (|r| + attention(q, k, |v|)) plus
+    Skv subnormal steps of max|v|.  f32: both sum in f32 in different
+    orders, ~eps * sqrt(D) of the logits' scale; 1e-4 of max|v|."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    qf, kf, vf = q.float(), k.float(), v.float()
+    r = attention_ref(qf, kf, vf, causal=causal, window=window)
+    vmax = float(vf.abs().max())
+    if q.dtype == torch.float32:
+        return r, torch.full_like(r, 1e-4 * vmax)
+    a = attention_ref(qf, kf, vf.abs(), causal=causal, window=window)
+    fi = torch.finfo(q.dtype)
+    return r, fi.eps * (r.abs() + a) + (
+        k.shape[2] * fi.smallest_normal * fi.eps * vmax)
+
+
+def fa_inputs(gen, B, hq, hkv, sq, skv, D, dtype, dev, qk_scale=0.3):
+    """q, k, v as transposed views of (B, S, H, D) tensors: the layout
+    multihead_attention hands the kernel.  q and k are scaled by
+    ``qk_scale``, v is standard normal."""
+    out = []
+    for h, s, scale in ((hq, sq, qk_scale), (hkv, skv, qk_scale),
+                        (hkv, skv, 1.0)):
+        x = torch.randn((B, s, h, D), generator=gen, device=dev) * scale
+        out.append(x.to(dtype).transpose(1, 2))
+    return out
+
+
+def check_flash(q, k, v, causal, window, qk_scale) -> float:
+    """Kernel vs plain on one input, elementwise within fa_tol; 16-bit
+    also within eps in relative L2 (the two roundings are unbiased and
+    ~u / sqrt(3) of |o| each in rms, ~0.4 eps together)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    r, tol = fa_tol(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    check(o.dtype == q.dtype and o.shape == q.shape,
+          "flash_attention: output dtype / shape")
+    d = o.float() - r
+    err = float(d.abs().max())
+    worst = float((d.abs() / tol).max())
+    rel_l2 = float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(r))
+    rel_tol = (None if q.dtype == torch.float32
+               else torch.finfo(q.dtype).eps)
+    what = (f"flash_attention {tuple(q.shape)} {q.dtype} causal={causal} "
+            f"window={window} qk_scale={qk_scale}")
+    check(worst <= 1.0, f"{what}: |o - r| up to {worst} x its tolerance")
+    check(rel_tol is None or rel_l2 <= rel_tol,
+          f"{what}: relative L2 {rel_l2} > {rel_tol}")
+    emit("lm_kernels", kernel="flash_attention", dtype=str(q.dtype),
+         q_shape=list(q.shape), kv_shape=list(k.shape), causal=causal,
+         window=window, qk_scale=qk_scale, max_abs_err=err,
+         max_err_over_tol=worst, rel_l2=rel_l2, rel_l2_tol=rel_tol,
+         mean_abs_ref=float(r.abs().mean()))
+    return err
+
+
+def lm_kernel_phase(dev) -> dict:
+    """flash_attention vs its plain version at small shapes and at the
+    serve path's; timings at the path's shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for B, hq, hkv, sq, skv, D, causal, window in FA_CASES:
+            for qs in FA_QK_SCALES:
+                check_flash(*fa_inputs(gen, B, hq, hkv, sq, skv, D, dtype,
+                                       dev, qs), causal, window, qs)
+    # determinism: no atomics, the same bits twice
+    q, k, v = fa_inputs(gen, 2, 8, 2, 300, 300, 128, torch.bfloat16, dev)
+    check(torch.equal(flash_attention(q, k, v, window=100),
+                      flash_attention(q, k, v, window=100)),
+          "flash_attention: two launches differ")
+
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    B, hq, hkv, S, D = (SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                        SERVE_PROMPT, cfg.hd)
+    err = check_flash(*fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16,
+                                 dev, FA_QK_SCALES[1]),
+                      True, None, FA_QK_SCALES[1])
+    q, k, v = fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16, dev)
+    err = max(err, check_flash(q, k, v, True, None, FA_QK_SCALES[0]))
+    # operations: two products of 2 flops per multiply-add over the
+    # S (S + 1) / 2 causal (query, key) pairs; bytes: q, k, v read once,
+    # o written once
+    flops = 4 * B * hq * D * (S * (S + 1) // 2)
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    try:    # the library call: PyTorch's fused attention, GQA in place
+        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       enable_gqa=True)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+    except TypeError:   # an older PyTorch: K/V repeated outside the timing
+        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, kr, vr, is_causal=True)
+    entry = timed("flash_attention", [B, hq, hkv, S, D], q.dtype, nbytes,
+                  flops, err, 10, lambda: flash_attention(q, k, v),
+                  lambda: attention_ref(q, k, v), library,
+                  flops_per_s=BF16_FLOPS)
+    emit("lm_kernels", kernel="flash_attention", gflop=flops / 1e9,
+         achieved_tflop_s=flops / (entry["ms"] * 1e-3) / 1e12,
+         library_tflop_s=flops / (entry["library_ms"] * 1e-3) / 1e12)
+    return entry
+
+
+def serve_phase(dev, reset_counts, read_counts) -> dict:
+    """granite-3-8b at full width through ServeEngine.generate; returns the
+    launches of the generate run, counted from 0 just before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(LM_ARCH).replace(attn_impl="flash")
+    check(cfg.dtype == "bfloat16" and cfg.family == "dense",
+          f"{LM_ARCH}: unexpected config {cfg}")
+    max_len = SERVE_PROMPT + SERVE_GEN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = torch.cuda.memory_allocated() / 1e9
+    batch = api.make_batch(cfg, SEED, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    eng = ServeEngine(cfg, params, max_len=max_len)
+
+    # the main path, launches counted from 0 just before it
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.generate(batch, SERVE_GEN)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"serve: {launches['flash_attention']} flash launches in one "
+          f"prefill, expected {cfg.n_layers}")
+    t0 = time.perf_counter()
+    again = eng.generate(batch, SERVE_GEN)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+          and toks.dtype == torch.int32, f"serve: tokens {toks.shape}")
+    check(torch.equal(toks, again), "serve: two greedy runs differ")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "serve: token id out of range")
+
+    # prefill and decode apart: flash vs the einsum (plain) path, timings
+    def prefill(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = api.prefill(c, params, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (logits, cache), prefill_ms = prefill(cfg)
+    check(tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "serve: prefill logits")
+    del cache
+    (ref, ref_cache), einsum_ms = prefill(cfg.replace(attn_impl="einsum"))
+    del ref_cache
+    d = (logits.float() - ref.float())
+    rel_l2 = float(torch.linalg.vector_norm(d)
+                   / torch.linalg.vector_norm(ref.float()))
+    max_rel = float(d.abs().max() / ref.float().abs().max())
+    # the two paths round differently inside attention only (P in bf16,
+    # the einsum path's f32 softmax); through 40 layers that is ~sqrt(40)
+    # half-ulps, ~2.5% of the logits; the gate is 8 bf16 eps = 6.25%
+    tol = 8 * torch.finfo(torch.bfloat16).eps
+    check(rel_l2 <= tol and max_rel <= tol,
+          f"serve: flash vs einsum prefill logits {rel_l2} / {max_rel} > "
+          f"{tol}")
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    del ref
+    def decode(inplace):
+        """ms per decode step over SERVE_GEN steps from a fresh prefill:
+        in place, as generate() decodes, or the default functional step
+        (a copy of the whole cache per step); and the steps' logits."""
+        _, cache = api.prefill(cfg, params, batch, max_len=max_len)
+        tok = logits.argmax(-1).to(torch.int32)
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_GEN):
+            step_logits, cache = api.decode_step(cfg, params, tok, cache,
+                                                 inplace=inplace)
+            check(bool(torch.isfinite(step_logits).all()),
+                  "serve: decode logits not finite")
+            tok = step_logits.argmax(-1).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SERVE_GEN, out
+
+    decode_ms, toks_inplace = decode(True)
+    copying_ms, toks_copying = decode(False)
+    check(all(torch.equal(a, b) for a, b in zip(toks_inplace, toks_copying)),
+          "serve: in-place and functional decode steps differ")
+    emit("serve", arch=LM_ARCH, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+         params_b=cfg.param_count() / 1e9, weight_gb=weight_gb,
+         init_s=init_s,
+         batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_GEN,
+         launches=launches, first_generate_s=first_s,
+         warm_generate_s=warm_s,
+         generated_tok_s=SERVE_BATCH * SERVE_GEN / warm_s,
+         prefill_ms=prefill_ms, einsum_prefill_ms=einsum_ms,
+         prefill_tok_s=SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+         decode_ms_per_token=decode_ms,
+         functional_decode_ms_per_token=copying_ms, peak_mem_gb=peak_gb,
+         logits_rel_l2_vs_einsum=rel_l2, logits_max_rel_vs_einsum=max_rel,
+         logits_tol=tol, first_token_agree=agree,
+         sample=toks[0, :8].tolist())
+    del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- main ----
 def main() -> None:
     if not torch.cuda.is_available():
@@ -352,12 +623,14 @@ def main() -> None:
     from repro_torch.gw.waveform import taylorf2_batch
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_sweep import ops as bs_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.greedy_update import ops as gu_ops
     from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_project import ops as ip_ops
 
     counters = {"greedy_update": gu_ops, "imgs_project": ip_ops,
-                "block_sweep": bs_ops, "imgs_panel": pp_ops}
+                "block_sweep": bs_ops, "imgs_panel": pp_ops,
+                "flash_attention": fa_ops}
 
     def reset_counts():
         for mod in counters.values():
@@ -511,7 +784,12 @@ def main() -> None:
           f"block_build: k {blk.k} outside [5, 1.15 * {k} + {BLOCK_P}]")
     check(blk.provenance["block_p"] == BLOCK_P,
           f"block_build: provenance block_p {blk.provenance['block_p']}")
-    del blk
+    del blk, S, cols
+    torch.cuda.empty_cache()
+
+    # --- the dense-LM serving path, with the GW S freed
+    timings["flash_attention"] = lm_kernel_phase(dev)
+    serve_launches = serve_phase(dev, reset_counts, read_counts)
 
     kernels = []
     for name, src, replaces, path in (
@@ -522,13 +800,17 @@ def main() -> None:
             ("block_sweep", "src/repro_torch/csrc/block_sweep.cu",
              "src/repro/kernels/block_sweep/kernel.py:86,119", blk_launches),
             ("imgs_panel", "src/repro_torch/csrc/imgs_panel.cu",
-             "src/repro/kernels/imgs_panel/kernel.py:76", blk_launches)):
+             "src/repro/kernels/imgs_panel/kernel.py:76", blk_launches),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:96",
+             serve_launches)):
         t = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path[name],
                         "launches_by_path": {
                             "greedy": launches[name],
-                            "block_greedy": blk_launches[name]},
+                            "block_greedy": blk_launches[name],
+                            "serve": serve_launches[name]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

@@ -1,0 +1,27 @@
+"""qwen1.5-110b [dense] — hf:Qwen/Qwen1.5-110B.
+
+80L d_model=8192 64H (GQA kv=8) d_ff=49152 vocab=152064, QKV bias.
+Full attention -> long_500k skip.  The largest dense cell (110B params).
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-110b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=49152,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)
+
+
+def reduced():
+    return CONFIG.replace(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=256, dtype="float32",
+    )

@@ -9,4 +9,6 @@ against) and ``ops.py`` (the wrapper: checks, launch, launch counter):
   (``csrc/block_sweep.cu``).
 - ``imgs_panel``    — one iterated-GS pass on a panel of p candidates
   (``csrc/imgs_panel.cu``).
+- ``flash_attention`` — causal / sliding-window GQA attention of the LM
+  prefill (``csrc/flash_attention.cu``).
 """

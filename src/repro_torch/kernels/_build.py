@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".kernel_build"
-SOURCES = ("greedy_update", "imgs_project", "block_sweep", "imgs_panel")
+SOURCES = ("greedy_update", "imgs_project", "block_sweep", "imgs_panel",
+           "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

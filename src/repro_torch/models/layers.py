@@ -1,0 +1,112 @@
+"""Shared building blocks: norms, RoPE, MLPs, initializers.
+
+The port of :mod:`repro.models.layers`.  A ``torch.Generator`` takes the
+place of a JAX key: parameters are drawn from it in a fixed order, on the
+generator's device, so a model initializes on the card without a copy.
+The sharding constraints of the JAX package have no counterpart on one
+card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------- init utils
+def trunc_normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
+    """Normal truncated to [-2, 2], times sqrt(scale / fan_in), drawn in f32
+    on ``gen``'s device and cast to ``dtype``."""
+    fan_in = shape[0] if len(shape) >= 1 else 1
+    std = (scale / max(fan_in, 1)) ** 0.5
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return x.mul_(std).to(dtype)
+
+
+def zeros(shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    """Zeros on ``gen``'s device (biases and norm weights start at 0)."""
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    """RMSNorm with a ``(1 + w)`` gain (``w`` starts at 0, Gemma-style)."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.to(torch.float32))).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5):
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * w.to(torch.float32) + b.to(torch.float32)).to(dt)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding, half-split (not interleaved).
+
+    x: (..., S, H, hd); positions: (..., S).
+    """
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.pow(
+        theta, -torch.arange(0, half, dtype=torch.float32,
+                             device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1f = x[..., :half].to(torch.float32)
+    x2f = x[..., half:].to(torch.float32)
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- MLPs
+def init_mlp(gen: torch.Generator, cfg, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = dtype_of(cfg.dtype)
+    if cfg.mlp_type == "swiglu":
+        return {
+            "w_gate": trunc_normal(gen, (d, f), 1.0, dt),
+            "w_up": trunc_normal(gen, (d, f), 1.0, dt),
+            "w_down": trunc_normal(gen, (f, d), 1.0, dt),
+        }
+    p = {
+        "w_up": trunc_normal(gen, (d, f), 1.0, dt),
+        "w_down": trunc_normal(gen, (f, d), 1.0, dt),
+    }
+    if cfg.mlp_bias:
+        p["b_up"] = zeros((f,), dt, gen)
+        p["b_down"] = zeros((d,), dt, gen)
+    return p
+
+
+def mlp(p, x, cfg):
+    """Feed-forward block: SwiGLU, or GeLU (tanh form, as ``jax.nn.gelu``)
+    with optional biases."""
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    h = x @ p["w_up"]
+    if "b_up" in p:
+        h = h + p["b_up"]
+    h = F.gelu(h, approximate="tanh")
+    y = h @ p["w_down"]
+    if "b_down" in p:
+        y = y + p["b_down"]
+    return y

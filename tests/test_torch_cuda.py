@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.kernels.block_sweep import ops as bs_ops
 from repro_torch.kernels.block_sweep.ref import block_sweep_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.greedy_update import ops as gu_ops
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
 from repro_torch.kernels.imgs_panel import ops as pp_ops
@@ -205,3 +207,115 @@ def test_block_driver_on_card_matches_cpu(cuda, dtype):
     assert gpu.k == cpu.k >= 8 and gpu.stop == cpu.stop
     assert torch.equal(gpu.pivots.cpu(), cpu.pivots)
     assert torch.equal(gpu.n_ortho_passes.cpu(), cpu.n_ortho_passes)
+
+
+# ----------------------------------------------------------- flash attention
+# (B, Hq, Hkv, Sq, Skv, D, causal, window): groups 1, 4 and 8; ragged S; a
+# window of 48 against key tiles of 64 (whole rows of a tile masked);
+# Sq < Skv end-aligned; non-causal, with Sq > Skv too; D from 16 to 256
+# (stablelm's 80 included); a single query row.
+FA_CASES = [
+    (2, 4, 4, 200, 200, 64, True, None),
+    (1, 8, 2, 256, 256, 128, True, None),
+    (1, 8, 1, 130, 130, 16, True, 48),
+    (2, 4, 1, 64, 300, 80, True, 48),
+    (1, 4, 2, 100, 100, 256, False, None),
+    (1, 2, 2, 80, 48, 32, False, None),
+    (1, 4, 4, 1, 77, 64, True, None),
+]
+FA_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+# q and k scales: 0.3 gives logits of std 0.09 (a near-uniform softmax);
+# 2.0 gives logits of std 4, peaked, so that a row's running max moves
+# across key tiles and the output's rescale by alpha is far from 1.
+FA_QK_SCALES = (0.3, 2.0)
+
+
+def _fa_ref_and_tol(q, k, v, causal, window):
+    """The plain version r (f32, from the same rounded inputs) and the
+    elementwise tolerance of the kernel's output.
+
+    16-bit: the kernel rounds P to the input type for the second product
+    (each p_j off by at most u = eps / 2 of itself, or half the smallest
+    subnormal for f16), moving o_i by at most u * attention(q, k, |v|)_i,
+    and rounds the output, u |o_i|; its f32 sums differ by ~1e-6
+    relative.  The tolerance is twice that bound: eps (|r| +
+    attention(q, k, |v|)) plus Skv subnormal steps of max|v|.  f32: both
+    sum in f32 in different orders, ~eps * sqrt(D) of the logits' scale
+    (~1e-5 relative here); 1e-4 of max|v|."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    r = attention_ref(qf, kf, vf, causal=causal, window=window)
+    vmax = float(vf.abs().max())
+    if q.dtype == torch.float32:
+        return r, torch.full_like(r, 1e-4 * vmax)
+    a = attention_ref(qf, kf, vf.abs(), causal=causal, window=window)
+    fi = torch.finfo(q.dtype)
+    return r, fi.eps * (r.abs() + a) + (
+        k.shape[2] * fi.smallest_normal * fi.eps * vmax)
+
+
+def _fa_inputs(gen, case, dtype, device, bshd=False, qk_scale=0.3):
+    """q, k, v from a seeded CPU generator; with ``bshd`` as transposed
+    views of (B, S, H, D) tensors, the layout the model hands over."""
+    B, hq, hkv, sq, skv, D = case[:6]
+    out = []
+    for h, s, scale in ((hq, sq, qk_scale), (hkv, skv, qk_scale),
+                        (hkv, skv, 1.0)):
+        x = (torch.randn((B, s, h, D), generator=gen) * scale).to(dtype)
+        x = x.to(device)
+        out.append(x.transpose(1, 2) if bshd else
+                   x.transpose(1, 2).contiguous())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FA_DTYPES)
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
+    """bf16/f16 are compared in f32 with the plain version computed in f32
+    from the same rounded inputs: elementwise within _fa_ref_and_tol, and
+    within eps in relative L2 (the two roundings are unbiased, ~u / sqrt(3)
+    of |o| each in rms, ~0.4 eps together)."""
+    causal, window = case[6], case[7]
+    gen = torch.Generator().manual_seed(2)
+    for bshd in (False, True):
+        for qk_scale in FA_QK_SCALES:
+            q, k, v = _fa_inputs(gen, case, dtype, cuda, bshd, qk_scale)
+            n0 = fa_ops.launches
+            o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            assert fa_ops.launches == n0 + 1
+            assert o.dtype == dtype and o.shape == q.shape
+            r, tol = _fa_ref_and_tol(q, k, v, causal, window)
+            d = o.float() - r
+            worst = float((d.abs() / tol).max())
+            assert worst <= 1.0, (bshd, qk_scale, worst)
+            if dtype != torch.float32:
+                rel = float(torch.linalg.vector_norm(d)
+                            / torch.linalg.vector_norm(r))
+                assert rel <= torch.finfo(dtype).eps, (bshd, qk_scale, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FA_DTYPES)
+def test_flash_attention_kernel_is_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = _fa_inputs(gen, (2, 8, 2, 300, 300, 128), dtype, cuda, True)
+    a = fa_ops.flash_attention(q, k, v, causal=True, window=100)
+    b = fa_ops.flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_rejects_bad_arguments(cuda):
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="no kernel for dtype"):
+        fa_ops.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="unit stride"):
+        t = torch.zeros((1, 2, 16, 8), device=cuda).transpose(2, 3)
+        fa_ops.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_ops.flash_attention(q, q.half(), q.half())

@@ -1,0 +1,129 @@
+"""The port's flash-attention plain version and wrapper (on the CPU, where
+the wrapper takes the plain version) against the JAX package's reference
+and its Pallas kernel in interpret mode.  The CUDA kernel itself is held
+against the plain version on the card by test_torch_cuda.py.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerance 2e-3 in f32, as the JAX package holds its own kernel to its
+reference (tests/test_kernels.py); 5e-2 in bf16, likewise.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_kernel
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+TOL = 2e-3
+
+
+def _qkv(rng, B, hq, hkv, sq, skv, D):
+    q = (rng.standard_normal((B, hq, sq, D)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((B, hkv, skv, D)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((B, hkv, skv, D)).astype(np.float32)
+    return q, k, v
+
+
+def _port(fn, q, k, v, **kw):
+    return fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+              **kw).numpy()
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (4, 1)])
+def test_matches_pallas_kernel(rng, causal, window, hq, hkv):
+    """Plain version and wrapper vs the Pallas kernel (interpret mode) and
+    the JAX reference, on tile-multiple shapes the kernel takes as is."""
+    q, k, v = _qkv(rng, 2, hq, hkv, 256, 256, 64)
+    o = np.asarray(flash_attention_kernel(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, interpret=True))
+    r = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, window=window))
+    mine = _port(attention_ref, q, k, v, causal=causal, window=window)
+    n0 = fa_ops.launches
+    wrapped = _port(fa_ops.flash_attention, q, k, v, causal=causal,
+                    window=window)
+    assert fa_ops.launches == n0       # the CPU takes the plain version
+    np.testing.assert_allclose(mine, r, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(mine, o, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(wrapped, mine)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (200, 200, True, None),     # ragged: the JAX wrapper pads to 256
+    (200, 200, True, 48),       # a window narrower than a 64-key tile
+    (200, 200, False, None),    # ragged non-causal: JAX falls back
+    (64, 300, True, None),      # Sq < Skv, end-aligned
+    (64, 300, True, 48),
+    (128, 384, True, None),     # Sq < Skv through the Pallas kernel
+    (64, 300, False, 100),
+])
+def test_ragged_and_end_aligned_match_jax(rng, sq, skv, causal, window):
+    q, k, v = _qkv(rng, 1, 8, 2, sq, skv, 64)
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    o = np.asarray(jax_flash(*args, causal=causal, window=window,
+                             use_kernel=True, interpret=True))
+    r = np.asarray(jax_ref(*args, causal=causal, window=window))
+    mine = _port(fa_ops.flash_attention, q, k, v, causal=causal,
+                 window=window)
+    assert mine.shape == (1, 8, sq, 64) and np.isfinite(mine).all()
+    np.testing.assert_allclose(mine, r, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(mine, o, rtol=TOL, atol=TOL)
+
+
+def test_bf16_matches_jax(rng):
+    q, k, v = _qkv(rng, 1, 4, 2, 128, 128, 128)
+    jargs = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    o = np.asarray(flash_attention_kernel(*jargs, causal=True,
+                                          interpret=True), np.float32)
+    r = np.asarray(jax_ref(*jargs, causal=True), np.float32)
+    targs = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    mine = fa_ops.flash_attention(*targs, causal=True)
+    assert mine.dtype == torch.bfloat16
+    mine = mine.to(torch.float32).numpy()
+    np.testing.assert_allclose(mine, r, rtol=5e-2, atol=5e-2)
+    np.testing.assert_allclose(mine, o, rtol=5e-2, atol=5e-2)
+
+
+def test_strided_views_match_contiguous(rng):
+    """The model hands the wrapper transposed (B, S, H, D) views."""
+    q, k, v = _qkv(rng, 2, 4, 2, 96, 96, 32)
+    t = [torch.from_numpy(x).transpose(1, 2).contiguous().transpose(1, 2)
+         for x in (q, k, v)]
+    assert not t[0].is_contiguous()
+    np.testing.assert_array_equal(
+        fa_ops.flash_attention(*t, causal=True, window=40).numpy(),
+        _port(fa_ops.flash_attention, q, k, v, causal=True, window=40))
+
+
+@pytest.mark.parametrize("shapes,kw,match", [
+    (((1, 2, 8, 8), (1, 2, 8, 8)), {}, "head dim 8"),
+    (((1, 2, 8, 272), (1, 2, 8, 272)), {}, "head dim 272"),
+    (((1, 3, 8, 16), (1, 2, 8, 16)), {}, "Hq % Hkv"),
+    (((1, 2, 9, 16), (1, 2, 8, 16)), {}, "causal with Sq 9 > Skv 8"),
+    (((1, 2, 8, 16), (1, 2, 8, 16)), {"window": 0}, "window 0"),
+    (((1, 2, 8, 16), (1, 2, 9, 32)), {}, "do not match"),
+])
+def test_wrapper_rejects_unsupported_problems(shapes, kw, match):
+    """Raised on every device: these are outside the kernel's contract
+    (causal Sq > Skv leaves rows with no key: the reference gives NaN)."""
+    qs, ks = shapes
+    q, k = torch.zeros(qs), torch.zeros(ks)
+    with pytest.raises(ValueError, match=match):
+        fa_ops.flash_attention(q, k, k, **kw)
+
+
+def test_non_causal_longer_queries_are_taken(rng):
+    """Non-causal Sq > Skv is well defined (every row sees every key)."""
+    q, k, v = _qkv(rng, 1, 2, 1, 80, 48, 16)
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    r = np.asarray(jax_ref(*args, causal=False))
+    mine = _port(fa_ops.flash_attention, q, k, v, causal=False)
+    np.testing.assert_allclose(mine, r, rtol=TOL, atol=TOL)

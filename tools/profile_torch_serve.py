@@ -1,0 +1,91 @@
+"""Where the time of the port's dense-LM serving path goes, on one GPU.
+
+    python3 tools/profile_torch_serve.py [--decode-steps 8] [--trace DIR]
+
+Initializes ``chip_smoke.py``'s serving cell (granite-3-8b at full width,
+bf16, ``attn_impl="flash"``, random weights from the seed) on the card,
+warms it with one ``ServeEngine.generate`` (4 prompts of 2048 tokens, 32
+new tokens each), then traces one prefill and ``--decode-steps`` decode
+steps under ``torch.profiler``.  Prints one JSON line per traced part: its
+wall time, the device busy share (union of kernel intervals over the
+wall time), kernel time by name and the host syncs seen.  The Chrome
+traces are kept in ``--trace DIR`` when given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--trace", default=None,
+                    help="keep the Chrome traces in this directory")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_serve: no CUDA device")
+    import chip_smoke as cs
+    from profile_torch_build import kernel_stats
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.serving import ServeEngine
+
+    _build.build_all(("flash_attention",))
+    dev = torch.device("cuda", 0)
+    cfg = get_config(cs.LM_ARCH).replace(attn_impl="flash")
+    max_len = cs.SERVE_PROMPT + cs.SERVE_GEN
+    params = api.init_params(cfg, cs.SEED, device=dev)
+    batch = api.make_batch(cfg, cs.SEED, cs.SERVE_BATCH, cs.SERVE_PROMPT,
+                           device=dev)
+    ServeEngine(cfg, params, max_len=max_len).generate(batch, cs.SERVE_GEN)
+
+    def traced(name, fn):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = os.path.join(args.trace or tmp, f"{name}.json")
+            os.makedirs(os.path.dirname(trace), exist_ok=True)
+            prof.export_chrome_trace(trace)
+            stats = kernel_stats(trace, wall * 1e6)
+        print(json.dumps({"part": name,
+                          "device": torch.cuda.get_device_name(0),
+                          "wall_ms": wall * 1e3, **stats}), flush=True)
+        return out
+
+    logits, cache = traced("prefill", lambda: api.prefill(
+        cfg, params, batch, max_len=max_len))
+    tok = logits.argmax(-1).to(torch.int32)
+
+    def decode():
+        nonlocal cache, tok
+        for _ in range(args.decode_steps):
+            # in place, as ServeEngine.generate decodes
+            step_logits, cache = api.decode_step(cfg, params, tok, cache,
+                                                 inplace=True)
+            tok = step_logits.argmax(-1).to(torch.int32)
+
+    traced(f"decode_x{args.decode_steps}", decode)
+
+
+if __name__ == "__main__":
+    main()
