@@ -26,17 +26,22 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              the greedy basis freed first; launches counted from 0 just
              before it, the same checks, k within the staleness bound
 
-  lm_kernels  flash_attention vs its plain version at the serve path's
-             shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16, causal) and at
-             small ones (f32/bf16/f16, D 16-256, groups 1/4/8, window 48,
-             non-causal, ragged S, Sq < Skv), each with near-uniform and
-             with peaked logits; times as above
+  lm_kernels  flash_attention's two kernels vs the plain version at the
+             serve path's shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16,
+             causal) and at small ones (f32/bf16/f16, D 16-256, groups
+             1/4/8, window 48, non-causal, ragged S, Sq < Skv), each with
+             near-uniform and with peaked logits, each call on the route the
+             rule gives (the general kernel also at the sm90 kernel's
+             shapes); at the path's shape the sm90 kernel and the general
+             one (the first design) timed in turns beside the plain version
+             and SDPA, with TFLOP/s and the share of the bound
   serve      granite-3-8b at full width (bf16, attn_impl="flash", random
              weights from the seed, initialized on the card, the GW S freed
              first): ServeEngine.generate on 4 prompts of 2048 tokens, 32
-             new tokens each; launches counted from 0 just before it;
-             prefill logits against the einsum (plain) path, two greedy
-             runs equal, every logit finite
+             new tokens each; launches counted from 0 just before it, all
+             40 flash launches on the sm90 route; prefill logits against
+             the einsum (plain) path, two greedy runs equal, every logit
+             finite
 
 Then a line listing every ported kernel, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
@@ -86,6 +91,16 @@ FA_CASES = [
     (1, 4, 2, 100, 100, 256, False, None),
     (1, 2, 2, 80, 48, 32, False, None),
     (1, 4, 4, 1, 77, 64, True, None),
+]
+# 16-bit cases of the sm90 kernel (D 64 / 128 / 256): Sq and Skv off its
+# 128-row query and key tiles, a window of 48 inside one key tile, Sq < Skv,
+# non-causal with Sq > Skv.
+SM90_CASES = [
+    (1, 8, 2, 333, 333, 128, True, None),
+    (1, 8, 1, 300, 300, 128, True, 48),
+    (2, 4, 1, 70, 390, 64, True, 48),
+    (1, 4, 4, 190, 130, 128, False, None),
+    (1, 4, 2, 150, 200, 256, True, None),
 ]
 
 
@@ -416,15 +431,24 @@ def fa_inputs(gen, B, hq, hkv, sq, skv, D, dtype, dev, qk_scale=0.3):
     return out
 
 
-def check_flash(q, k, v, causal, window, qk_scale) -> float:
+def check_flash(q, k, v, causal, window, qk_scale, general=False) -> float:
     """Kernel vs plain on one input, elementwise within fa_tol; 16-bit
     also within eps in relative L2 (the two roundings are unbiased and
-    ~u / sqrt(3) of |o| each in rms, ~0.4 eps together)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    ~u / sqrt(3) of |o| each in rms, ~0.4 eps together).  The call takes
+    the route kernel_route gives, or with ``general`` the general kernel;
+    it must launch once, on that route."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    o = flash_attention(q, k, v, causal=causal, window=window)
+    route = "general" if general else fa_ops.kernel_route(
+        q.dtype, q.shape[3], fa_ops.aligned16(q, k, v))
+    fn = fa_ops._flash_attention_general if general else \
+        fa_ops.flash_attention
+    n0 = getattr(fa_ops, f"launches_{route}")
+    o = fn(q, k, v, causal=causal, window=window)
     r, tol = fa_tol(q, k, v, causal, window)
     torch.cuda.synchronize()
+    check(getattr(fa_ops, f"launches_{route}") == n0 + 1,
+          f"flash_attention: the call did not launch the {route} kernel")
     check(o.dtype == q.dtype and o.shape == q.shape,
           "flash_attention: output dtype / shape")
     d = o.float() - r
@@ -433,48 +457,64 @@ def check_flash(q, k, v, causal, window, qk_scale) -> float:
     rel_l2 = float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(r))
     rel_tol = (None if q.dtype == torch.float32
                else torch.finfo(q.dtype).eps)
-    what = (f"flash_attention {tuple(q.shape)} {q.dtype} causal={causal} "
-            f"window={window} qk_scale={qk_scale}")
+    what = (f"flash_attention [{route}] {tuple(q.shape)} {q.dtype} "
+            f"causal={causal} window={window} qk_scale={qk_scale}")
     check(worst <= 1.0, f"{what}: |o - r| up to {worst} x its tolerance")
     check(rel_tol is None or rel_l2 <= rel_tol,
           f"{what}: relative L2 {rel_l2} > {rel_tol}")
-    emit("lm_kernels", kernel="flash_attention", dtype=str(q.dtype),
-         q_shape=list(q.shape), kv_shape=list(k.shape), causal=causal,
-         window=window, qk_scale=qk_scale, max_abs_err=err,
+    emit("lm_kernels", kernel="flash_attention", route=route,
+         dtype=str(q.dtype), q_shape=list(q.shape), kv_shape=list(k.shape),
+         causal=causal, window=window, qk_scale=qk_scale, max_abs_err=err,
          max_err_over_tol=worst, rel_l2=rel_l2, rel_l2_tol=rel_tol,
          mean_abs_ref=float(r.abs().mean()))
     return err
 
 
 def lm_kernel_phase(dev) -> dict:
-    """flash_attention vs its plain version at small shapes and at the
-    serve path's; timings at the path's shape."""
+    """flash_attention's two kernels vs the plain version at small shapes
+    and at the serve path's; the two kernels timed in turns at the path's
+    shape.  Returns the timing entries of both."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for B, hq, hkv, sq, skv, D, causal, window in FA_CASES:
+    half = (torch.bfloat16, torch.float16)
+    for dtype in (torch.float32, *half):
+        for case in FA_CASES + (SM90_CASES if dtype in half else []):
             for qs in FA_QK_SCALES:
-                check_flash(*fa_inputs(gen, B, hq, hkv, sq, skv, D, dtype,
-                                       dev, qs), causal, window, qs)
-    # determinism: no atomics, the same bits twice
+                check_flash(*fa_inputs(gen, *case[:6], dtype, dev, qs),
+                            case[6], case[7], qs)
+    # the general kernel's 16-bit branch where the sm90 kernel now serves
+    for dtype in half:
+        for case in FA_CASES:
+            if case[5] in fa_ops.SM90_HEAD_DIMS:
+                check_flash(*fa_inputs(gen, *case[:6], dtype, dev, 2.0),
+                            case[6], case[7], 2.0, general=True)
+    # determinism: no atomics, the same bits twice, on both kernels
     q, k, v = fa_inputs(gen, 2, 8, 2, 300, 300, 128, torch.bfloat16, dev)
-    check(torch.equal(flash_attention(q, k, v, window=100),
-                      flash_attention(q, k, v, window=100)),
-          "flash_attention: two launches differ")
+    for fn in (fa_ops.flash_attention, fa_ops._flash_attention_general):
+        check(torch.equal(fn(q, k, v, window=100), fn(q, k, v, window=100)),
+              "flash_attention: two launches differ")
 
     from repro_torch.configs import get_config
     cfg = get_config(LM_ARCH)
     B, hq, hkv, S, D = (SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads,
                         SERVE_PROMPT, cfg.hd)
-    err = check_flash(*fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16,
-                                 dev, FA_QK_SCALES[1]),
-                      True, None, FA_QK_SCALES[1])
+    peaked = fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16, dev,
+                       FA_QK_SCALES[1])
+    err = check_flash(*peaked, True, None, FA_QK_SCALES[1])
+    err_general = check_flash(*peaked, True, None, FA_QK_SCALES[1],
+                              general=True)
+    check(torch.equal(fa_ops.flash_attention(*peaked),
+                      fa_ops.flash_attention(*peaked)),
+          "flash_attention: two launches differ at the path's shape")
+    del peaked
     q, k, v = fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16, dev)
     err = max(err, check_flash(q, k, v, True, None, FA_QK_SCALES[0]))
+    err_general = max(err_general, check_flash(
+        q, k, v, True, None, FA_QK_SCALES[0], general=True))
     # operations: two products of 2 flops per multiply-add over the
     # S (S + 1) / 2 causal (query, key) pairs; bytes: q, k, v read once,
     # o written once
@@ -489,14 +529,32 @@ def lm_kernel_phase(dev) -> dict:
         kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, kr, vr, is_causal=True)
-    entry = timed("flash_attention", [B, hq, hkv, S, D], q.dtype, nbytes,
-                  flops, err, 10, lambda: flash_attention(q, k, v),
-                  lambda: attention_ref(q, k, v), library,
-                  flops_per_s=BF16_FLOPS)
-    emit("lm_kernels", kernel="flash_attention", gflop=flops / 1e9,
-         achieved_tflop_s=flops / (entry["ms"] * 1e-3) / 1e12,
-         library_tflop_s=flops / (entry["library_ms"] * 1e-3) / 1e12)
-    return entry
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    kernels = {"flash_attention": lambda: fa_ops.flash_attention(q, k, v),
+               "flash_attention_general":
+                   lambda: fa_ops._flash_attention_general(q, k, v)}
+    # in turns: sm90, general, plain, library, general, sm90
+    turns = {name: [] for name in (*kernels, "plain", "library")}
+    for name in ("flash_attention", "flash_attention_general"):
+        turns[name].append(time_ms(kernels[name], 10))
+    turns["plain"].append(time_ms(lambda: attention_ref(q, k, v), 10))
+    turns["library"].append(time_ms(library, 10))
+    for name in ("flash_attention_general", "flash_attention"):
+        turns[name].append(time_ms(kernels[name], 10))
+    out = {}
+    for name, e in (("flash_attention", err),
+                    ("flash_attention_general", err_general)):
+        ms = min(turns[name])
+        out[name] = {"ms": ms, "plain_ms": turns["plain"][0],
+                     "library_ms": turns["library"][0], "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": e}
+        emit("lm_kernels", kernel=name, timing_shape=[B, hq, hkv, S, D],
+             dtype=str(q.dtype), gflop=flops / 1e9, turns_ms=turns[name],
+             achieved_tflop_s=flops / (ms * 1e-3) / 1e12,
+             bound_share=b_ms / ms,
+             library_tflop_s=flops / (turns["library"][0] * 1e-3) / 1e12,
+             **out[name])
+    return out
 
 
 def serve_phase(dev, reset_counts, read_counts) -> dict:
@@ -529,9 +587,10 @@ def serve_phase(dev, reset_counts, read_counts) -> dict:
     first_s = time.perf_counter() - t0
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"serve: {launches['flash_attention']} flash launches in one "
-          f"prefill, expected {cfg.n_layers}")
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["flash_attention_sm90"] == cfg.n_layers,
+          f"serve: {launches} flash launches in one prefill, expected "
+          f"{cfg.n_layers}, all on the sm90 route")
     t0 = time.perf_counter()
     again = eng.generate(batch, SERVE_GEN)
     torch.cuda.synchronize()
@@ -635,9 +694,14 @@ def main() -> None:
     def reset_counts():
         for mod in counters.values():
             mod.launches = 0
+        fa_ops.launches_sm90 = fa_ops.launches_general = 0
 
     def read_counts():
-        return {name: mod.launches for name, mod in counters.items()}
+        counts = {name: mod.launches for name, mod in counters.items()}
+        # flash_attention's launches by route
+        counts["flash_attention_sm90"] = fa_ops.launches_sm90
+        counts["flash_attention_general"] = fa_ops.launches_general
+        return counts
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -788,7 +852,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --- the dense-LM serving path, with the GW S freed
-    timings["flash_attention"] = lm_kernel_phase(dev)
+    timings.update(lm_kernel_phase(dev))
     serve_launches = serve_phase(dev, reset_counts, read_counts)
 
     kernels = []
@@ -801,16 +865,27 @@ def main() -> None:
              "src/repro/kernels/block_sweep/kernel.py:86,119", blk_launches),
             ("imgs_panel", "src/repro_torch/csrc/imgs_panel.cu",
              "src/repro/kernels/imgs_panel/kernel.py:76", blk_launches),
-            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            ("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention/kernel.py:96",
+             serve_launches),
+            ("flash_attention_general",
+             "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96",
              serve_launches)):
         t = timings[name]
+        # flash_attention's wrapper routes between two kernels: each entry
+        # counts its own route's launches
+        wrapper_route = {"flash_attention": "sm90",
+                         "flash_attention_general": "general"}.get(name)
+        key = ("flash_attention_" + wrapper_route if wrapper_route
+               else name)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": path[name],
+                        "replaces": replaces, "launches": path[key],
+                        "wrapper_route": wrapper_route,
                         "launches_by_path": {
-                            "greedy": launches[name],
-                            "block_greedy": blk_launches[name],
-                            "serve": serve_launches[name]},
+                            "greedy": launches[key],
+                            "block_greedy": blk_launches[key],
+                            "serve": serve_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

@@ -1,7 +1,19 @@
-"""Wrapper of the CUDA flash attention (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash attention: two hand-written kernels, chosen by
+shape.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel or raises.  ``launches`` counts calls that launched it.
+one of the two kernels, by the fixed rule of :func:`kernel_route`, or
+raises:
+
+* ``"sm90"`` (``csrc/flash_attention_sm90.cu``: TMA, ``wgmma``, O in
+  registers) takes bf16 / f16 at head dims 64, 128 and 256 when every base
+  pointer and every stride but D's is a multiple of 16 bytes;
+* ``"general"`` (``csrc/flash_attention.cu``: WMMA for 16-bit, FMA for f32)
+  takes the rest: f32, the other head dims (16 to 256 in steps of 16,
+  stablelm's 80 among them) and unaligned views.
+
+``launches`` counts calls that launched either kernel; ``launches_sm90``
+and ``launches_general`` count them by route.
 
 The kernel masks ragged sequence ends itself (no padding, no fallback) and
 reads q, k, v through their strides, so the transposed (B, S, H, D)
@@ -21,14 +33,42 @@ from repro_torch.kernels.common import ptr, raise_on_error, stream_ptr
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
+launches_sm90 = 0
+launches_general = 0
 
+SM90_HEAD_DIMS = (64, 128, 256)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float16: "f16"}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, ctypes.c_void_p]
-_SIGNATURES = {f"flash_attention_{sfx}": (_ARGTYPES, ctypes.c_int)
-               for sfx in _SUFFIX.values()}
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+_LIBS = {
+    "general": ("flash_attention", {
+        f"flash_attention_{sfx}":
+            (_ARGTYPES + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+        for sfx in _SUFFIX.values()}),
+    "sm90": ("flash_attention_sm90", {
+        f"flash_attention_sm90_{sfx}":
+            (_ARGTYPES + [ctypes.c_void_p], ctypes.c_int)
+        for sfx in ("bf16", "f16")}),
+}
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Every base pointer and every stride but the last (D's, which is 1) a
+    multiple of 16 bytes: what TMA and the 16-byte vector loads need."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+        for t in tensors)
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int, aligned: bool) -> str:
+    """The kernel a CUDA call takes: ``"sm90"`` for bf16 / f16 at a head dim
+    of 64, 128 or 256 with 16-byte aligned pointers and strides, else
+    ``"general"``."""
+    if (dtype in (torch.bfloat16, torch.float16)
+            and head_dim in SM90_HEAD_DIMS and aligned):
+        return "sm90"
+    return "general"
 
 
 def _check_shapes(q, k, v, causal, window):
@@ -67,7 +107,20 @@ def flash_attention(
     Same function as
     :func:`repro_torch.kernels.flash_attention.ref.attention_ref`.
     """
-    global launches
+    return _flash(q, k, v, causal, window, sm_scale, general=False)
+
+
+def _flash_attention_general(q, k, v, causal=True, window=None,
+                             sm_scale=None) -> torch.Tensor:
+    """:func:`flash_attention` through the general kernel whatever
+    :func:`kernel_route` says: the first design, timed beside the sm90
+    kernel by ``chip_smoke.py`` and held to the plain version by the card
+    tests at the shapes the sm90 kernel now takes."""
+    return _flash(q, k, v, causal, window, sm_scale, general=True)
+
+
+def _flash(q, k, v, causal, window, sm_scale, general):
+    global launches, launches_sm90, launches_general
     _check_shapes(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -94,17 +147,26 @@ def flash_attention(
         sm_scale = 1.0 / (D ** 0.5)
     out = torch.empty_like(q)
     tensors = (q, k, v, out)
-    strides = [s for t in tensors for s in t.stride()]
-    # 16-byte vector loads need 16-byte aligned rows
-    vec = all(t.data_ptr() % 16 == 0 for t in tensors) and all(
-        s * q.element_size() % 16 == 0
-        for t in tensors for s in t.stride()[:3])
-    lib = _build.load("flash_attention", _SIGNATURES)
-    err = getattr(lib, f"flash_attention_{sfx}")(
-        ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, Sq, Skv, D,
-        (ctypes.c_longlong * 16)(*strides), int(causal),
-        0 if window is None else int(window), float(sm_scale), int(vec),
-        stream_ptr(q.device))
-    raise_on_error(lib, "flash_attention", err)
+    aligned = aligned16(*tensors)
+    route = "general" if general else kernel_route(q.dtype, D, aligned)
+    strides = (ctypes.c_longlong * 16)(
+        *[s for t in tensors for s in t.stride()])
+    lib_name, signatures = _LIBS[route]
+    lib = _build.load(lib_name, signatures)
+    args = [ptr(q), ptr(k), ptr(v), ptr(out), B, Hq, Hkv, Sq, Skv, D,
+            strides, int(causal), 0 if window is None else int(window),
+            float(sm_scale)]
+    if route == "sm90":
+        err = getattr(lib, f"flash_attention_sm90_{sfx}")(
+            *args, stream_ptr(q.device))
+    else:
+        # aligned rows: 16-byte vector loads
+        err = getattr(lib, f"flash_attention_{sfx}")(
+            *args, int(aligned), stream_ptr(q.device))
+    raise_on_error(lib, f"flash_attention ({route})", err)
     launches += 1
+    if route == "sm90":
+        launches_sm90 += 1
+    else:
+        launches_general += 1
     return out

@@ -269,23 +269,25 @@ def _fa_inputs(gen, case, dtype, device, bshd=False, qk_scale=0.3):
     return out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", FA_DTYPES)
-@pytest.mark.parametrize("case", FA_CASES)
-def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
-    """bf16/f16 are compared in f32 with the plain version computed in f32
-    from the same rounded inputs: elementwise within _fa_ref_and_tol, and
-    within eps in relative L2 (the two roundings are unbiased, ~u / sqrt(3)
-    of |o| each in rms, ~0.4 eps together)."""
+def _fa_run_cases(cuda, dtype, case, fn, counter):
+    """fn on the case with contiguous and with (B, S, H, D) inputs, at both
+    q/k scales; each call launches once, on the route ``counter`` names
+    (None: the route fa_ops.kernel_route gives the inputs).  The output is
+    held elementwise within _fa_ref_and_tol; bf16/f16 also within eps in
+    relative L2 (the two roundings are unbiased, ~u / sqrt(3) of |o| each
+    in rms, ~0.4 eps together)."""
     causal, window = case[6], case[7]
     gen = torch.Generator().manual_seed(2)
     for bshd in (False, True):
         for qk_scale in FA_QK_SCALES:
             q, k, v = _fa_inputs(gen, case, dtype, cuda, bshd, qk_scale)
-            n0 = fa_ops.launches
-            o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+            name = counter or "launches_" + fa_ops.kernel_route(
+                dtype, case[5], fa_ops.aligned16(q, k, v))
+            n0, r0 = fa_ops.launches, getattr(fa_ops, name)
+            o = fn(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             assert fa_ops.launches == n0 + 1
+            assert getattr(fa_ops, name) == r0 + 1, name
             assert o.dtype == dtype and o.shape == q.shape
             r, tol = _fa_ref_and_tol(q, k, v, causal, window)
             d = o.float() - r
@@ -299,14 +301,81 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", FA_DTYPES)
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
+    """The public entry, on the route kernel_route gives: bf16/f16 at D 64,
+    128 and 256 on the sm90 kernel, the rest on the general one.  bf16/f16
+    are compared in f32 with the plain version computed in f32 from the
+    same rounded inputs."""
+    _fa_run_cases(cuda, dtype, case, fa_ops.flash_attention, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_general_kernel_matches_plain(cuda, dtype, case):
+    """The general kernel's 16-bit (WMMA) branch at every head dim, the
+    ones the sm90 kernel now takes included."""
+    _fa_run_cases(cuda, dtype, case, fa_ops._flash_attention_general,
+                  "launches_general")
+
+
+# The sm90 kernel's cases: D 64 and 128 (and 256); groups 1, 4 and 8; Sq
+# and Skv off the 128-row query and key tiles; Sq < Skv end-aligned; a
+# window of 48 inside one key tile; non-causal with Sq > Skv; one query.
+SM90_CASES = [
+    (2, 4, 4, 200, 200, 64, True, None),
+    (1, 8, 2, 333, 333, 128, True, None),
+    (1, 8, 1, 300, 300, 128, True, 48),
+    (2, 4, 1, 70, 390, 64, True, 48),
+    (1, 4, 4, 190, 130, 128, False, None),
+    (1, 8, 2, 129, 257, 128, False, 100),
+    (1, 4, 2, 150, 200, 256, True, None),
+    (1, 4, 4, 1, 77, 64, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", SM90_CASES)
+def test_flash_attention_sm90_kernel_matches_plain(cuda, dtype, case):
+    """Every case takes the sm90 route and holds to the same tolerance."""
+    _fa_run_cases(cuda, dtype, case, fa_ops.flash_attention, "launches_sm90")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sm_scale", [-0.2, 0.0])
+def test_flash_attention_sm90_kernel_sign_of_scale(cuda, sm_scale):
+    """The sm90 kernel folds the scale into its exponent with a positive
+    factor: a negative scale goes into the product's sign, a zero one gives
+    uniform weights over the visible keys, as in the plain version."""
+    gen = torch.Generator().manual_seed(4)
+    case = (1, 8, 2, 200, 200, 128, True, 48)
+    q, k, v = _fa_inputs(gen, case, torch.bfloat16, cuda, True, 2.0)
+    n0 = fa_ops.launches_sm90
+    o = fa_ops.flash_attention(q, k, v, causal=True, window=48,
+                               sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_sm90 == n0 + 1
+    qf, kf, vf = q.float(), k.float(), v.float()
+    r = attention_ref(qf, kf, vf, causal=True, window=48, sm_scale=sm_scale)
+    a = attention_ref(qf, kf, vf.abs(), causal=True, window=48,
+                      sm_scale=sm_scale)
+    eps = torch.finfo(torch.bfloat16).eps
+    assert float(((o.float() - r).abs() / (eps * (r.abs() + a))).max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FA_DTYPES)
 def test_flash_attention_kernel_is_deterministic(cuda, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
     gen = torch.Generator().manual_seed(3)
     q, k, v = _fa_inputs(gen, (2, 8, 2, 300, 300, 128), dtype, cuda, True)
-    a = fa_ops.flash_attention(q, k, v, causal=True, window=100)
-    b = fa_ops.flash_attention(q, k, v, causal=True, window=100)
-    torch.cuda.synchronize()
-    assert torch.equal(a, b)
+    for fn in (fa_ops.flash_attention, fa_ops._flash_attention_general):
+        a = fn(q, k, v, causal=True, window=100)
+        b = fn(q, k, v, causal=True, window=100)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -127,3 +127,64 @@ def test_non_causal_longer_queries_are_taken(rng):
     r = np.asarray(jax_ref(*args, causal=False))
     mine = _port(fa_ops.flash_attention, q, k, v, causal=False)
     np.testing.assert_allclose(mine, r, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kernel_route_rule(dtype, head_dim, aligned):
+    """The sm90 kernel takes 16-bit types at D 64, 128 and 256 with 16-byte
+    aligned pointers and strides; the general kernel the rest."""
+    want = ("sm90" if dtype != torch.float32 and head_dim in (64, 128, 256)
+            and aligned else "general")
+    assert fa_ops.kernel_route(dtype, head_dim, aligned) == want
+
+
+def _bshd_views(dtype, B, S, hq, hkv, D, width=None):
+    """q, k, v as multihead_attention hands them over: transposed views of
+    (B, S, H, D) activations; with ``width`` > D, cut from wider rows."""
+    width = width or D
+    out = []
+    for h in (hq, hkv, hkv):
+        x = torch.zeros((B, S, h, width), dtype=dtype)[..., :D]
+        out.append(x.transpose(1, 2))
+    return out
+
+
+@pytest.mark.parametrize("dtype,D,width,want", [
+    (torch.bfloat16, 128, None, "sm90"),     # granite-3-8b's prefill
+    (torch.float16, 64, None, "sm90"),
+    (torch.bfloat16, 256, None, "sm90"),
+    (torch.bfloat16, 80, None, "general"),   # stablelm-3b's head dim
+    (torch.float32, 128, None, "general"),
+    (torch.bfloat16, 128, 132, "general"),   # rows of 264 bytes
+])
+def test_route_of_the_model_views(dtype, D, width, want):
+    q, k, v = _bshd_views(dtype, 2, 40, 8, 2, D, width)
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    out = torch.empty_like(q)
+    if width is None:   # the output takes q's layout
+        assert out.stride() == q.stride()
+    route = fa_ops.kernel_route(dtype, D, fa_ops.aligned16(q, k, v, out))
+    assert route == want
+
+
+@pytest.mark.parametrize("shapes,match", [
+    (((1, 2, 8, 24), (1, 2, 8, 24)), "head dim 24"),
+    (((1, 2, 8, 0), (1, 2, 8, 0)), "head dim 0"),
+    (((1, 0, 8, 16), (1, 0, 8, 16)), "non-empty"),
+])
+def test_wrapper_rejects_what_neither_kernel_takes(shapes, match):
+    qs, ks = shapes
+    q, k = torch.zeros(qs, dtype=torch.bfloat16), torch.zeros(
+        ks, dtype=torch.bfloat16)
+    for fn in (fa_ops.flash_attention, fa_ops._flash_attention_general):
+        with pytest.raises(ValueError, match=match):
+            fn(q, k, k)
+
+
+def test_wrapper_raises_on_a_device_without_a_kernel():
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fa_ops.flash_attention(q, q, q)
