@@ -13,18 +13,24 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
   env        torch / CUDA versions and the card
   build      seconds to build the CUDA kernels (nvcc, at first use)
   kernels    each kernel vs its plain version at the paths' shapes and at
-             small ragged ones, with the tolerance of each check; times of
-             the kernel, the plain version and the one-call library
-             yardstick (CUDA events, best of n), and the bound
+             small ragged ones, with the tolerance of each check, each call
+             on the route its wrapper's rule gives and, for greedy_update
+             and imgs_panel, on their general routes too (two launches
+             bitwise equal); times of the kernel, the plain version and the
+             one-call library yardstick (CUDA events, best of n, the card's
+             time alone: the host has issued a call before the card reaches
+             it), with the routes of a wrapper timed in turns, and the bound
   snapshots  generation of S on the card
   build_basis  the full-width greedy build through the front door;
-             launches of each kernel (counted from 0 just before it),
-             orthogonality and per-column-error checks
+             launches of each kernel (counted from 0 just before it), every
+             greedy_update launch on the sm90 route, orthogonality and
+             per-column-error checks
   artifact   save/load bit-equality, EIM nodes
   roq        16 ROQ inner products against full quadrature
   block_build  the full-width blocked build through the front door, with
              the greedy basis freed first; launches counted from 0 just
-             before it, the same checks, k within the staleness bound
+             before it, every imgs_panel launch on the sm90 route, the same
+             checks, k within the staleness bound
 
   lm_kernels  flash_attention's two kernels vs the plain version at the
              serve path's shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16,
@@ -113,13 +119,20 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Best of ``reps`` CUDA-event timings of one call, after a warm-up."""
+def time_ms(fn, reps: int, queued: bool = True) -> float:
+    """Best of ``reps`` CUDA-event timings of one call, after a warm-up.
+
+    ``queued``: a ~1 ms spin kernel is enqueued before the start event, so
+    the host has issued the call's launches before the card reaches them
+    and the time is the card's alone.  Without it the time also holds the
+    host's cost of issuing the call (Python, argument checks, launches)."""
     fn()
     best = math.inf
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -143,14 +156,27 @@ def sum_tol(dtype: torch.dtype, n: int) -> float:
 
 
 # ------------------------------------------------------------- kernels ----
-def check_greedy_update(S, q, acc, norms, exact_argmax: bool) -> float:
-    """Kernel vs plain on one input; returns the max abs error of c."""
-    from repro_torch.kernels.greedy_update.ops import greedy_update
+def check_greedy_update(S, q, acc, norms, exact_argmax: bool,
+                        general: bool = False) -> float:
+    """Kernel vs plain on one input, on the route kernel_route gives (or,
+    with ``general``, the general kernel); the call must launch once, on
+    that route, and a second launch give the same bits.  Returns the max
+    abs error of c."""
+    from repro_torch.kernels.greedy_update import ops as gu_ops
     from repro_torch.kernels.greedy_update.ref import greedy_update_ref
 
-    c, a, mx, am = greedy_update(q, S, acc, norms)
+    route = "general" if general else gu_ops.kernel_route(
+        S.dtype, S.shape[1], S.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+    fn = gu_ops._greedy_update_general if general else gu_ops.greedy_update
+    n0 = getattr(gu_ops, f"launches_{route}")
+    c, a, mx, am = fn(q, S, acc, norms)
+    again = fn(q, S, acc, norms)
     cr, ar, mxr, amr = greedy_update_ref(q, S, acc, norms)
     torch.cuda.synchronize()
+    check(getattr(gu_ops, f"launches_{route}") == n0 + 2,
+          f"greedy_update: the calls did not launch the {route} kernel")
+    check(all(torch.equal(x, y) for x, y in zip((c, a, mx, am), again)),
+          f"greedy_update [{route}]: two launches differ")
     eps = torch.finfo(acc.dtype).eps
     scale = float(torch.linalg.vector_norm(S, dim=0).max())
     tol = sum_tol(S.dtype, S.shape[0]) * scale * float(
@@ -169,7 +195,7 @@ def check_greedy_update(S, q, acc, norms, exact_argmax: bool) -> float:
           f"greedy_update max_res: {float(mx)} vs {float(mxr)}")
     if exact_argmax:
         check(int(am) == int(amr), f"argmax {int(am)} != {int(amr)}")
-    emit("kernels", kernel="greedy_update", dtype=str(S.dtype),
+    emit("kernels", kernel="greedy_update", route=route, dtype=str(S.dtype),
          shape=list(S.shape), max_abs_err_c=err_c, tol_c=tol,
          max_abs_err_acc=err_a, tol_acc=tol_a, max_res=float(mx),
          argmax=int(am), plain_argmax=int(amr), exact_argmax=exact_argmax)
@@ -206,18 +232,30 @@ def check_block_sweep(Qnew, S, acc) -> float:
     return err_c
 
 
-def check_imgs_panel(V, Q) -> float:
-    from repro_torch.kernels.imgs_panel.ops import imgs_panel
+def check_imgs_panel(V, Q, general: bool = False) -> float:
+    """Kernel vs plain on one input, on the route kernel_route gives (or,
+    with ``general``, the general kernel); the call must launch once, on
+    that route, and a second launch give the same bits."""
+    from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 
-    Vo, C = imgs_panel(V, Q)
+    route = "general" if general else pp_ops.kernel_route(
+        Q.dtype, Q.shape[1], V.shape[1])
+    fn = pp_ops._imgs_panel_general if general else pp_ops.imgs_panel
+    n0 = getattr(pp_ops, f"launches_{route}")
+    Vo, C = fn(V, Q)
+    again = fn(V, Q)
     Vr, Cr = imgs_panel_ref(V, Q)
     torch.cuda.synchronize()
+    check(getattr(pp_ops, f"launches_{route}") == n0 + 2,
+          f"imgs_panel: the calls did not launch the {route} kernel")
+    check(torch.equal(Vo, again[0]) and torch.equal(C, again[1]),
+          f"imgs_panel [{route}]: two launches differ")
     tol = sum_tol(Q.dtype, Q.shape[0]) * float(
         torch.linalg.vector_norm(V, dim=0).max())
     err = max(float((C - Cr).abs().max()), float((Vo - Vr).abs().max()))
-    check(err <= tol, f"imgs_panel: {err} > {tol}")
-    emit("kernels", kernel="imgs_panel", dtype=str(Q.dtype),
+    check(err <= tol, f"imgs_panel [{route}]: {err} > {tol}")
+    emit("kernels", kernel="imgs_panel", route=route, dtype=str(Q.dtype),
          shape=list(Q.shape), p=V.shape[1], max_abs_err=err, tol=tol)
     return err
 
@@ -276,10 +314,45 @@ def timed(name, shape, dtype, nbytes, flops, err, reps, kernel, plain,
     return entry
 
 
-def time_greedy_update(S, gen, dev) -> dict:
-    """greedy_update at full width, on the GW snapshots themselves (real
-    residuals may have near-ties: the argmax is checked through max_res)."""
-    from repro_torch.kernels.greedy_update.ops import greedy_update
+def timed_turns(name, shape, dtype, nbytes, flops, errs, reps, kernels,
+                plain, library, host_reps=0) -> dict:
+    """A kernel's routes timed in turns beside its plain version and the
+    library yardstick (routes, plain, library, routes reversed; best of
+    ``reps`` each); one kernels line per route.  ``kernels`` and ``errs``
+    map each entry name to its call and its max abs error.  With
+    ``host_reps``, also the time of a call issued to an idle card, the
+    host's cost of issuing it included (``call_ms``)."""
+    b = bound(nbytes, flops)
+    turns = {n: [] for n in (*kernels, "plain", "library")}
+    for n, fn in kernels.items():
+        turns[n].append(time_ms(fn, reps))
+    turns["plain"].append(time_ms(plain, reps))
+    turns["library"].append(time_ms(library, reps))
+    for n, fn in reversed(kernels.items()):
+        turns[n].append(time_ms(fn, reps))
+    calls = {}
+    if host_reps:
+        for n, fn in (*kernels.items(), ("library", library)):
+            calls[n] = time_ms(fn, host_reps, queued=False)
+    out = {}
+    for n in kernels:
+        ms = min(turns[n])
+        out[n] = {"ms": ms, "plain_ms": turns["plain"][0],
+                  "library_ms": turns["library"][0], "bound_ms": b[0],
+                  "bound_by": b[1], "max_abs_err": errs[n]}
+        extra = {"call_ms": calls[n], "library_call_ms": calls["library"]} \
+            if host_reps else {}
+        emit("kernels", kernel=n, timing_shape=shape, dtype=str(dtype),
+             turns_ms=turns[n], bound_share=b[0] / ms,
+             achieved_gb_s=nbytes / (ms * 1e-3) / 1e9, **extra, **out[n])
+    return out
+
+
+def time_greedy_update(S, gen, dev, suffix="") -> dict:
+    """greedy_update's two routes at full width, on the GW snapshots
+    themselves (real residuals may have near-ties: the argmax is checked
+    through max_res)."""
+    from repro_torch.kernels.greedy_update import ops as gu_ops
     from repro_torch.kernels.greedy_update.ref import greedy_update_ref
 
     q = rand(gen, (N,), S.dtype, dev)
@@ -287,16 +360,25 @@ def time_greedy_update(S, gen, dev) -> dict:
     norms = torch.linalg.vector_norm(S, dim=0) ** 2
     acc = torch.rand(M, generator=gen, dtype=torch.float64).to(
         norms.dtype).to(dev) * 0.5
-    err = check_greedy_update(S, q, acc, norms, exact_argmax=False)
+    check(gu_ops.kernel_route(S.dtype, M, True) == "sm90",
+          "greedy_update: the path's shape is not on the sm90 route")
+    errs = {"greedy_update" + suffix: check_greedy_update(
+                S, q, acc, norms, exact_argmax=False),
+            "greedy_update_general" + suffix: check_greedy_update(
+                S, q, acc, norms, exact_argmax=False, general=True)}
     qc = q.conj().resolve_conj()
     # bytes: S, q, acc, norms read once; c, acc_out written once
     nbytes = S.nbytes + q.nbytes + 2 * acc.nbytes + norms.nbytes \
         + M * S.element_size()
-    return timed("greedy_update", [N, M], S.dtype, nbytes,
-                 macs_flops(S.dtype) * N * M, err, 10,
-                 lambda: greedy_update(q, S, acc, norms),
-                 lambda: greedy_update_ref(q, S, acc, norms),
-                 lambda: torch.mv(S.mT, qc))
+    return timed_turns(
+        "greedy_update", [N, M], S.dtype, nbytes, macs_flops(S.dtype) * N * M,
+        errs, 10,
+        {"greedy_update" + suffix: lambda: gu_ops.greedy_update(
+            q, S, acc, norms),
+         "greedy_update_general" + suffix:
+             lambda: gu_ops._greedy_update_general(q, S, acc, norms)},
+        lambda: greedy_update_ref(q, S, acc, norms),
+        lambda: torch.mv(S.mT, qc))
 
 
 def kernel_phase(S, dev) -> dict:
@@ -304,7 +386,7 @@ def kernel_phase(S, dev) -> dict:
     shapes.  Returns the per-kernel entries of the final kernels line."""
     from repro_torch.kernels.block_sweep.ops import block_sweep
     from repro_torch.kernels.block_sweep.ref import block_sweep_ref
-    from repro_torch.kernels.imgs_panel.ops import imgs_panel
+    from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
     from repro_torch.kernels.imgs_project.ops import imgs_project
     from repro_torch.kernels.imgs_project.ref import imgs_project_ref
@@ -312,9 +394,13 @@ def kernel_phase(S, dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     for dtype in (torch.float32, torch.complex64, torch.float64,
                   torch.complex128):
-        for shape in ((17, 33), (300, 700)):
-            check_greedy_update(*random_update_inputs(gen, shape, dtype, dev),
-                                exact_argmax=True)
+        # both routes: odd M (the general route but in complex128), M off
+        # the sm90 kernel's 128-column tiles, N off its stages
+        for shape in ((17, 33), (300, 700), (129, 1000)):
+            for general in (False, True):
+                check_greedy_update(
+                    *random_update_inputs(gen, shape, dtype, dev),
+                    exact_argmax=True, general=general)
         for shape in ((33, 17), (513, 37)):
             Q = torch.linalg.qr(rand(gen, shape, dtype, dev))[0].contiguous()
             check_imgs_project(rand(gen, (shape[0],), dtype, dev), Q)
@@ -328,17 +414,21 @@ def kernel_phase(S, dev) -> dict:
                 dtype.to_real()).to(dev)
             check_block_sweep(Qnew.contiguous(), rand(gen, (n, m), dtype, dev),
                               acc)
+        # both routes: ragged slabs and a ticket tree of one to three
+        # levels, odd and even K and p, two column panels
         for n, k, p in ((33, 17, 1), (513, 37, 3), (300, 40, 8),
-                        (300, 40, 33)):
+                        (1100, 40, 33), (40001, 9, 2)):
             Q = torch.linalg.qr(rand(gen, (n, k), dtype, dev))[0]
             Q[:, k // 2] = 0
-            check_imgs_panel(rand(gen, (n, p), dtype, dev), Q.contiguous())
+            V = rand(gen, (n, p), dtype, dev)
+            for general in (False, True):
+                check_imgs_panel(V, Q.contiguous(), general)
 
-    out = {"greedy_update": time_greedy_update(S, gen, dev)}
+    out = time_greedy_update(S, gen, dev)
     # the f32 case of greedy_update (greedy_update_real on the TPU) at the
     # same width, on the real part of the snapshots; not on the GW path
     S32 = S.real.contiguous()
-    time_greedy_update(S32, gen, dev)
+    time_greedy_update(S32, gen, dev, suffix="_f32")
     del S32
     torch.cuda.empty_cache()
 
@@ -376,13 +466,20 @@ def kernel_phase(S, dev) -> dict:
     Q = torch.zeros((N, K), dtype=S.dtype, device=dev)
     Q[:, :K // 2] = torch.linalg.qr(rand(gen, (N, K // 2), S.dtype, dev))[0]
     V = rand(gen, (N, BLOCK_P), S.dtype, dev)
+    check(pp_ops.kernel_route(S.dtype, K, BLOCK_P) == "sm90",
+          "imgs_panel: the path's shape is not on the sm90 route")
     # bytes: Q and V read once; C and V' written once
-    out["imgs_panel"] = timed(
+    out.update(timed_turns(
         "imgs_panel", [N, K, BLOCK_P], S.dtype,
         Q.nbytes + 2 * V.nbytes + K * BLOCK_P * Q.element_size(),
-        2 * macs_flops(S.dtype) * N * K * BLOCK_P, check_imgs_panel(V, Q),
-        50, lambda: imgs_panel(V, Q), lambda: imgs_panel_ref(V, Q),
-        lambda: torch.addmm(V, Q, torch.mm(Q.mH, V), alpha=-1))
+        2 * macs_flops(S.dtype) * N * K * BLOCK_P,
+        {"imgs_panel": check_imgs_panel(V, Q),
+         "imgs_panel_general": check_imgs_panel(V, Q, general=True)}, 50,
+        {"imgs_panel": lambda: pp_ops.imgs_panel(V, Q),
+         "imgs_panel_general": lambda: pp_ops._imgs_panel_general(V, Q)},
+        lambda: imgs_panel_ref(V, Q),
+        lambda: torch.addmm(V, Q, torch.mm(Q.mH, V), alpha=-1),
+        host_reps=50))
     return out
 
 
@@ -691,16 +788,20 @@ def main() -> None:
                 "block_sweep": bs_ops, "imgs_panel": pp_ops,
                 "flash_attention": fa_ops}
 
+    # the wrappers that route between two kernels count each route apart
+    routed = ("greedy_update", "imgs_panel", "flash_attention")
+
     def reset_counts():
         for mod in counters.values():
             mod.launches = 0
-        fa_ops.launches_sm90 = fa_ops.launches_general = 0
+        for name in routed:
+            counters[name].launches_sm90 = counters[name].launches_general = 0
 
     def read_counts():
         counts = {name: mod.launches for name, mod in counters.items()}
-        # flash_attention's launches by route
-        counts["flash_attention_sm90"] = fa_ops.launches_sm90
-        counts["flash_attention_general"] = fa_ops.launches_general
+        for name in routed:
+            counts[name + "_sm90"] = counters[name].launches_sm90
+            counts[name + "_general"] = counters[name].launches_general
         return counts
 
     dev = torch.device("cuda", 0)
@@ -737,9 +838,10 @@ def main() -> None:
     cols = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :8192].to(dev)
 
-    def drive(phase, sweeps_with, path_kernels, **spec):
+    def drive(phase, sweeps_with, path_kernels, sm90_only, **spec):
         """One full-width build through the front door, its kernels'
-        launches counted from 0 just before it; checks orthogonality and
+        launches counted from 0 just before it; checks that every launch of
+        the kernels in ``sm90_only`` took the sm90 route, orthogonality and
         the error on 8192 sampled columns; emits the phase line."""
         reset_counts()
         torch.cuda.synchronize()
@@ -752,6 +854,10 @@ def main() -> None:
         k = b.k
         check(all(launches[n] > 0 for n in path_kernels),
               f"{phase}: a kernel of the path was not launched: {launches}")
+        check(all(launches[n + "_sm90"] == launches[n]
+                  and launches[n + "_general"] == 0 for n in sm90_only),
+              f"{phase}: a launch of {sm90_only} left the sm90 route: "
+              f"{launches}")
         check(5 <= k <= MAX_K and np.all(np.isfinite(b.errs)),
               f"{phase}: bad rank {k}")
         eps = torch.finfo(torch.float32).eps
@@ -781,7 +887,7 @@ def main() -> None:
     # --- the greedy path: build_basis at full width
     basis, launches = drive("build_basis", "greedy_update",
                             ("greedy_update", "imgs_project"),
-                            strategy="greedy")
+                            ("greedy_update",), strategy="greedy")
     k = basis.k
 
     # --- artifact: save, load, bit-equal; EIM
@@ -841,7 +947,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     blk, blk_launches = drive("block_build", "block_sweep",
                               ("block_sweep", "imgs_panel", "imgs_project"),
-                              strategy="block_greedy", block_p=BLOCK_P)
+                              ("imgs_panel",), strategy="block_greedy",
+                              block_p=BLOCK_P)
     # pivot staleness costs at most ~15% more bases (the reference's
     # bound, tests/test_block_greedy.py) plus one block of headroom
     check(5 <= blk.k <= int(1.15 * k) + BLOCK_P,
@@ -855,33 +962,39 @@ def main() -> None:
     timings.update(lm_kernel_phase(dev))
     serve_launches = serve_phase(dev, reset_counts, read_counts)
 
+    # one entry per kernel; a wrapper that routes between two kernels has
+    # an entry for each, which counts its own route's launches
     kernels = []
-    for name, src, replaces, path in (
-            ("greedy_update", "src/repro_torch/csrc/greedy_update.cu",
-             "src/repro/kernels/greedy_update/kernel.py:108,147", launches),
+    for name, src, replaces, path, key in (
+            ("greedy_update", "src/repro_torch/csrc/greedy_update_sm90.cu",
+             "src/repro/kernels/greedy_update/kernel.py:108,147", launches,
+             "greedy_update_sm90"),
+            ("greedy_update_general", "src/repro_torch/csrc/greedy_update.cu",
+             "src/repro/kernels/greedy_update/kernel.py:108,147", launches,
+             "greedy_update_general"),
             ("imgs_project", "src/repro_torch/csrc/imgs_project.cu",
-             "src/repro/kernels/imgs_project/kernel.py:67", launches),
+             "src/repro/kernels/imgs_project/kernel.py:67", launches,
+             "imgs_project"),
             ("block_sweep", "src/repro_torch/csrc/block_sweep.cu",
-             "src/repro/kernels/block_sweep/kernel.py:86,119", blk_launches),
-            ("imgs_panel", "src/repro_torch/csrc/imgs_panel.cu",
-             "src/repro/kernels/imgs_panel/kernel.py:76", blk_launches),
+             "src/repro/kernels/block_sweep/kernel.py:86,119", blk_launches,
+             "block_sweep"),
+            ("imgs_panel", "src/repro_torch/csrc/imgs_panel_sm90.cu",
+             "src/repro/kernels/imgs_panel/kernel.py:76", blk_launches,
+             "imgs_panel_sm90"),
+            ("imgs_panel_general", "src/repro_torch/csrc/imgs_panel.cu",
+             "src/repro/kernels/imgs_panel/kernel.py:76", blk_launches,
+             "imgs_panel_general"),
             ("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention/kernel.py:96",
-             serve_launches),
+             serve_launches, "flash_attention_sm90"),
             ("flash_attention_general",
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96",
-             serve_launches)):
+             serve_launches, "flash_attention_general")):
         t = timings[name]
-        # flash_attention's wrapper routes between two kernels: each entry
-        # counts its own route's launches
-        wrapper_route = {"flash_attention": "sm90",
-                         "flash_attention_general": "general"}.get(name)
-        key = ("flash_attention_" + wrapper_route if wrapper_route
-               else name)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path[key],
-                        "wrapper_route": wrapper_route,
+                        "counter": key,
                         "launches_by_path": {
                             "greedy": launches[key],
                             "block_greedy": blk_launches[key],

@@ -47,9 +47,8 @@
 //     a kv head run side by side and share K and V in L2.  Key tiles that
 //     causality or the window rule out for a whole item are never loaded.
 #include "common.cuh"
+#include "sm90.cuh"  // mbarriers, named barriers, the tensor-map encoder
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through
-                   // cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <float.h>
@@ -57,6 +56,8 @@
 #include <stdio.h>
 
 namespace {
+
+using namespace repro::sm90;
 
 constexpr int BQ = 128;       // query rows per CTA, 64 per consumer warpgroup
 constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
@@ -81,42 +82,6 @@ struct Args {
 };
 
 // ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
                                          int c3) {
@@ -137,11 +102,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
       " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
-}
-
-// Named barrier `id` over `n` threads (id 0 is __syncthreads').
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -350,7 +310,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), 2 * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -651,31 +611,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ------------------------------------------------------------------- host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The 4-D map (D, S, H, B) of one operand given its (B, H, S, D) element
 // strides; boxes of 64 x rows x 1 x 1, 128-byte swizzle; loads read zeros
 // past S, stores write nothing there.

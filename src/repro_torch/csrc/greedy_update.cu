@@ -1,4 +1,7 @@
-// greedy_update: the fused Eq.-(6.3) pivot-search sweep for Hopper.
+// greedy_update: the fused Eq.-(6.3) pivot-search sweep for Hopper, the
+// general route: S whose rows TMA cannot address (odd M in complex64 /
+// float64, M % 4 != 0 in float32, unaligned views); the rest takes
+// greedy_update_sm90.cu.
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/greedy_update/kernel.py
 // greedy_update_real (:108, body _kernel_real :41) and
@@ -28,8 +31,6 @@
 //     (max, index) pairs.  The comparison is a total order (larger value,
 //     then smaller index), so the result is the same on every run and
 //     equals the first-index argmax; no atomics.
-// Making the sweep reach the DRAM roof (TMA ring, split-N partial sums)
-// is later work.
 #include <stdint.h>
 
 #include "common.cuh"

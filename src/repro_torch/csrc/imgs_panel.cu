@@ -1,4 +1,6 @@
-// imgs_panel: one classical Gram-Schmidt pass on a panel, for Hopper.
+// imgs_panel: one classical Gram-Schmidt pass on a panel, for Hopper, the
+// general route: a K whose slab of 8 rows does not fit in shared memory;
+// the rest takes imgs_panel_sm90.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/imgs_panel/kernel.py
 // imgs_panel_real (:76; bodies _proj_kernel :39, _update_kernel :57),

@@ -46,6 +46,45 @@ def kernel_dtype(kernel: str, dtype: torch.dtype) -> str:
             f"{list(DTYPE_SUFFIX)}") from None
 
 
+def base_aligned16(*tensors: torch.Tensor) -> bool:
+    """Every base pointer a multiple of 16 bytes: what TMA and the 16-byte
+    ``cp.async`` copies of the sm90 kernels need."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# Buffers that belong to the wrappers, one of each kind per (device index,
+# stream): kernels on one stream run one after another, so each finds the
+# buffer as the previous one left it.  Launches on another stream get their
+# own.
+_tickets: dict = {}
+_scratch: dict = {}
+
+
+def ticket_counters(device: torch.device, stream: ctypes.c_void_p,
+                    n: int) -> torch.Tensor:
+    """``n`` int32 counters at 0, for a kernel whose CTAs take tickets to
+    elect the last one to finish; the kernel leaves them at 0.  ``stream``
+    is :func:`stream_ptr`'s value."""
+    key = (device.index, stream.value)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
+def scratch_buffer(device: torch.device, stream: ctypes.c_void_p,
+                   nbytes: int) -> torch.Tensor:
+    """At least ``nbytes`` of uninitialised device memory that a kernel uses
+    within one launch (16-byte aligned, like every PyTorch allocation)."""
+    key = (device.index, stream.value)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        _scratch[key] = buf
+    return buf
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

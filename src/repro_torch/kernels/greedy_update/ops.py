@@ -1,7 +1,19 @@
-"""Wrapper of the CUDA pivot-search sweep (``csrc/greedy_update.cu``).
+"""Wrapper of the CUDA pivot-search sweep: two hand-written kernels, chosen by
+shape.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel or raises.  ``launches`` counts the kernel's launches.
+one of the two kernels, by the fixed rule of :func:`kernel_route`, or
+raises:
+
+* ``"sm90"`` (``csrc/greedy_update_sm90.cu``: a TMA ring, one launch per
+  sweep) takes S whose rows are a multiple of 16 bytes, with S and q on
+  16-byte boundaries;
+* ``"general"`` (``csrc/greedy_update.cu``, the first design: two launches
+  per sweep) takes the rest: odd M in complex64 / float64, M % 4 != 0 in
+  float32, unaligned views.
+
+``launches`` counts calls that launched either kernel; ``launches_sm90``
+and ``launches_general`` count them by route.
 """
 
 from __future__ import annotations
@@ -12,19 +24,41 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    DTYPE_SUFFIX, check_tensor, kernel_dtype, ptr, raise_on_error, stream_ptr,
+    DTYPE_SUFFIX, base_aligned16, check_tensor, kernel_dtype, ptr,
+    raise_on_error, stream_ptr, ticket_counters,
 )
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
 
 launches = 0
+launches_sm90 = 0
+launches_general = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [
-    ctypes.c_void_p]
-_SIGNATURES = {
-    **{f"greedy_update_{sfx}": (_ARGTYPES, ctypes.c_int)
-       for sfx in DTYPE_SUFFIX.values()},
-    "greedy_update_num_blocks": ([ctypes.c_longlong], ctypes.c_longlong),
+_LIBS = {
+    "general": ("greedy_update", {
+        **{f"greedy_update_{sfx}": (
+            [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
+            + [ctypes.c_void_p], ctypes.c_int)
+           for sfx in DTYPE_SUFFIX.values()},
+        "greedy_update_num_blocks": ([ctypes.c_longlong], ctypes.c_longlong),
+    }),
+    "sm90": ("greedy_update_sm90", {
+        **{f"greedy_update_sm90_{sfx}": (
+            [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
+            + [ctypes.c_void_p], ctypes.c_int)
+           for sfx in DTYPE_SUFFIX.values()},
+        "greedy_update_sm90_num_blocks": ([ctypes.c_longlong],
+                                          ctypes.c_longlong),
+    }),
 }
+
+
+def kernel_route(dtype: torch.dtype, M: int, aligned: bool) -> str:
+    """The kernel a CUDA call takes: ``"sm90"`` when a row of S (M elements
+    of ``dtype``) is a multiple of 16 bytes and S and q start on 16-byte
+    boundaries (``aligned``), what TMA needs; else ``"general"``."""
+    if aligned and M * dtype.itemsize % 16 == 0:
+        return "sm90"
+    return "general"
 
 
 def greedy_update(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
@@ -36,7 +70,19 @@ def greedy_update(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
     argmax is the first index of the maximum on the card too.  ``acc`` is
     not modified (``acc_out`` is a new tensor).
     """
-    global launches
+    return _greedy_update(q, S, acc, norms_sq, general=False)
+
+
+def _greedy_update_general(q, S, acc, norms_sq):
+    """:func:`greedy_update` through the general kernel whatever
+    :func:`kernel_route` says: the first design, timed beside the sm90
+    kernel by ``chip_smoke.py`` and held to the plain version by the card
+    tests at the shapes the sm90 kernel now takes."""
+    return _greedy_update(q, S, acc, norms_sq, general=True)
+
+
+def _greedy_update(q, S, acc, norms_sq, general):
+    global launches, launches_sm90, launches_general
     if S.device.type == "cpu":
         return greedy_update_ref(q, S, acc, norms_sq)
     if S.device.type != "cuda":
@@ -52,18 +98,29 @@ def greedy_update(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
     check_tensor("greedy_update", "q", q, S.dtype, (N,), dev)
     check_tensor("greedy_update", "acc", acc, rdt, (M,), dev)
     check_tensor("greedy_update", "norms_sq", norms_sq, rdt, (M,), dev)
-    lib = _build.load("greedy_update", _SIGNATURES)
-    nb = int(lib.greedy_update_num_blocks(M))
+    route = "general" if general else kernel_route(
+        S.dtype, M, base_aligned16(S, q))
+    lib_name, signatures = _LIBS[route]
+    lib = _build.load(lib_name, signatures)
+    entry = "greedy_update_sm90" if route == "sm90" else "greedy_update"
+    nb = int(getattr(lib, f"{entry}_num_blocks")(M))
     c = torch.empty((M,), dtype=S.dtype, device=dev)
     acc_out = torch.empty((M,), dtype=rdt, device=dev)
     bmax = torch.empty((nb,), dtype=rdt, device=dev)
     bidx = torch.empty((nb,), dtype=torch.int64, device=dev)
     max_res = torch.empty((), dtype=rdt, device=dev)
     argmax = torch.empty((), dtype=torch.int64, device=dev)
-    err = getattr(lib, f"greedy_update_{sfx}")(
-        ptr(q), ptr(S), ptr(acc), ptr(norms_sq), ptr(c), ptr(acc_out),
-        ptr(bmax), ptr(bidx), ptr(max_res), ptr(argmax), N, M,
-        stream_ptr(dev))
-    raise_on_error(lib, "greedy_update", err)
+    stream = stream_ptr(dev)
+    args = [ptr(q), ptr(S), ptr(acc), ptr(norms_sq), ptr(c), ptr(acc_out),
+            ptr(bmax), ptr(bidx)]
+    if route == "sm90":
+        args.append(ptr(ticket_counters(dev, stream, 1)))
+    err = getattr(lib, f"{entry}_{sfx}")(
+        *args, ptr(max_res), ptr(argmax), N, M, stream)
+    raise_on_error(lib, f"greedy_update ({route})", err)
     launches += 1
+    if route == "sm90":
+        launches_sm90 += 1
+    else:
+        launches_general += 1
     return c, acc_out, max_res, argmax

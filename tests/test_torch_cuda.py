@@ -80,6 +80,96 @@ def test_greedy_update_kernel_matches_plain(cuda, dtype, shape):
         + 4 * torch.finfo(rdt).eps * float(norms.abs().max())
 
 
+def _check_greedy_route(cuda, dtype, shape, general, seed=0):
+    """One call on the route kernel_route gives (or, with ``general``, the
+    general kernel): one launch on that route; c, acc_out and max_res within
+    _tol of the plain version, the argmax exact (residuals separated by a
+    distinct offset per column).  Returns the inputs for reuse."""
+    gen = torch.Generator().manual_seed(seed)
+    N, M = shape
+    S = _rand(gen, (N, M), dtype, cuda)
+    q = _rand(gen, (N,), dtype, cuda)
+    q = q / torch.linalg.vector_norm(q)
+    rdt = dtype.to_real()
+    acc = torch.rand(M, generator=gen, dtype=torch.float64).to(rdt).to(cuda)
+    perm = torch.randperm(M, generator=gen).to(cuda)
+    norms = (S.abs() ** 2).sum(0) + perm.to(rdt)
+    route = "general" if general else gu_ops.kernel_route(
+        dtype, M, S.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+    fn = gu_ops._greedy_update_general if general else gu_ops.greedy_update
+    n0 = getattr(gu_ops, f"launches_{route}")
+    c, a, mx, am = fn(q, S, acc, norms)
+    torch.cuda.synchronize()
+    assert getattr(gu_ops, f"launches_{route}") == n0 + 1, route
+    cr, ar, mxr, amr = greedy_update_ref(q, S, acc, norms)
+    scale = float(torch.linalg.vector_norm(S, dim=0).max())
+    tol = _tol(dtype, N) * scale
+    assert float((c - cr).abs().max()) <= tol
+    assert float((a - ar).abs().max()) <= 2 * float(cr.abs().max()) * tol \
+        + 4 * torch.finfo(rdt).eps * float(ar.abs().max())
+    assert int(am) == int(amr)
+    assert float(norms[am] - a[am]) == float(mx)
+    return q, S, acc, norms
+
+
+# (N, M): rows off the sm90 kernel's stages (64 / 32 / 16 rows) and a
+# single stage; M off its 128-column tiles, in one tile and in several;
+# odd M (the general route in every type but complex128)
+GREEDY_ROUTE_SHAPES = [(17, 33), (300, 700), (129, 1000), (1000, 1030),
+                       (1025, 4099), (33, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", GREEDY_ROUTE_SHAPES)
+def test_greedy_update_routes_match_plain(cuda, dtype, shape, general):
+    """Each route, at ragged stages and tiles, against the plain version;
+    the call's launch lands on the route kernel_route names."""
+    _check_greedy_route(cuda, dtype, shape, general)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_greedy_update_wide_matches_plain(cuda, dtype, general):
+    """At the GW path's width, M = 131072 (1024 CTAs of the sm90 kernel,
+    the last-ticket fold over all of them)."""
+    _check_greedy_route(cuda, dtype, (2000, 131072), general)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_update_is_deterministic(cuda, dtype):
+    """No floating-point atomics: two launches of each kernel on the same
+    inputs give the same bits."""
+    args = _check_greedy_route(cuda, dtype, (1000, 8200), False, seed=5)
+    for fn in (gu_ops.greedy_update, gu_ops._greedy_update_general):
+        a, b = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_greedy_update_unaligned_view_takes_general_route(cuda):
+    """Rows of 16-byte multiples (M = 34 in complex64) but a base 8 bytes
+    into its storage: TMA cannot take it, the general kernel does."""
+    gen = torch.Generator().manual_seed(6)
+    buf = _rand(gen, (8 * 34 + 1,), torch.complex64, cuda)
+    S = buf[1:].view(8, 34)
+    q = _rand(gen, (8,), torch.complex64, cuda)
+    acc = torch.zeros(34, device=cuda)
+    norms = (S.abs() ** 2).sum(0) + torch.arange(34, device=cuda)
+    n0 = gu_ops.launches_general
+    c, _, _, am = gu_ops.greedy_update(q, S, acc, norms)
+    torch.cuda.synchronize()
+    assert gu_ops.launches_general == n0 + 1
+    cr, _, _, amr = greedy_update_ref(q, S, acc, norms)
+    assert float((c - cr).abs().max()) <= _tol(torch.complex64, 8) * float(
+        torch.linalg.vector_norm(S, dim=0).max())
+    assert int(am) == int(amr)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(17, 33), (513, 37), (1000, 100)])
@@ -180,6 +270,83 @@ def test_imgs_panel_kernel_matches_plain(cuda, dtype, shape):
     tol = _tol(dtype, N) * float(torch.linalg.vector_norm(V, dim=0).max())
     assert float((C - Cr).abs().max()) <= tol
     assert float((Vo - Vr).abs().max()) <= tol
+
+
+def _check_panel_route(cuda, dtype, shape, general, seed=3):
+    """One call on the route kernel_route gives (or, with ``general``, the
+    general kernel), with a zero column in Q (an empty slot): one launch
+    on that route, C and V' within _tol of the plain version.  Returns the
+    inputs."""
+    gen = torch.Generator().manual_seed(seed)
+    N, K, p = shape
+    Q = torch.linalg.qr(_rand(gen, (N, K), dtype, cuda))[0]
+    Q[:, K // 2] = 0
+    Q = Q.contiguous()
+    V = _rand(gen, (N, p), dtype, cuda)
+    route = "general" if general else pp_ops.kernel_route(dtype, K, p)
+    fn = pp_ops._imgs_panel_general if general else pp_ops.imgs_panel
+    n0 = getattr(pp_ops, f"launches_{route}")
+    Vo, C = fn(V, Q)
+    torch.cuda.synchronize()
+    assert getattr(pp_ops, f"launches_{route}") == n0 + 1, route
+    Vr, Cr = imgs_panel_ref(V, Q)
+    tol = _tol(dtype, N) * float(torch.linalg.vector_norm(V, dim=0).max())
+    assert float((C - Cr).abs().max()) <= tol
+    assert float((Vo - Vr).abs().max()) <= tol
+    assert bool((C[K // 2] == 0).all())
+    return V, Q
+
+
+# (N, K, p): N within one slab, ragged last slabs, a ticket tree of one,
+# two and three levels (slabs of at most 128 rows, 16 partials per fold);
+# odd and even K and p; p 1, 3, 8 and 33 (two column panels); the blocked
+# path's (10000, 108, 8)
+PANEL_ROUTE_SHAPES = [(17, 33, 1), (513, 37, 3), (1000, 108, 8),
+                      (1100, 40, 33), (2113, 20, 7), (10000, 108, 8),
+                      (40001, 9, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", PANEL_ROUTE_SHAPES)
+def test_imgs_panel_routes_match_plain(cuda, dtype, shape, general):
+    _check_panel_route(cuda, dtype, shape, general)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_imgs_panel_is_deterministic(cuda, dtype):
+    """No floating-point atomics: the fold's order is fixed, so two launches
+    of each kernel on the same inputs give the same bits."""
+    V, Q = _check_panel_route(cuda, dtype, (5000, 108, 8), False, seed=7)
+    for fn in (pp_ops.imgs_panel, pp_ops._imgs_panel_general):
+        a, b = fn(V, Q), fn(V, Q)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_imgs_panel_routes_of_unaligned_and_wide_q(cuda):
+    """Q 8 bytes into its storage takes the sm90 kernel (its copies are of
+    single elements); a K whose slab of 8 rows does not fit in shared
+    memory takes the general one.  Both within _tol of the plain version."""
+    gen = torch.Generator().manual_seed(8)
+    for N, K, off, dt, want in ((300, 37, 1, torch.complex64, "sm90"),
+                                (2100, 2000, 0, torch.complex128, "general")):
+        buf = torch.empty((N * K + off,), dtype=dt, device=cuda)
+        Q = buf[off:].view(N, K)
+        Q.copy_(torch.linalg.qr(_rand(gen, (N, K), dt, cuda))[0])
+        V = _rand(gen, (N, 3), dt, cuda)
+        assert pp_ops.kernel_route(dt, K, 3) == want
+        n0 = getattr(pp_ops, f"launches_{want}")
+        Vo, C = pp_ops.imgs_panel(V, Q)
+        torch.cuda.synchronize()
+        assert getattr(pp_ops, f"launches_{want}") == n0 + 1
+        Vr, Cr = imgs_panel_ref(V, Q)
+        tol = _tol(dt, N) * float(torch.linalg.vector_norm(V, dim=0).max())
+        assert float((C - Cr).abs().max()) <= tol
+        assert float((Vo - Vr).abs().max()) <= tol
 
 
 @pytest.mark.cuda

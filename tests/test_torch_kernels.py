@@ -285,3 +285,99 @@ def test_library_name_tracks_sources():
     assert p.name.startswith("libgreedy_update-") and p.suffix == ".so"
     assert {s + ".cu" for s in _build.SOURCES} <= set(
         os.listdir(_build.CSRC))
+
+
+# ------------------------------------------------------- kernel routes ----
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64, torch.complex128])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 33, 700, 4099, 131072])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_greedy_update_kernel_route_rule(dtype, M, aligned):
+    """The sm90 kernel takes S whose rows are a multiple of 16 bytes, with S
+    and q on 16-byte boundaries (what TMA needs); the general one the
+    rest: odd M in complex64 / float64, M % 4 != 0 in float32."""
+    want = ("sm90" if aligned and M * dtype.itemsize % 16 == 0
+            else "general")
+    assert gu_ops.kernel_route(dtype, M, aligned) == want
+
+
+def test_greedy_update_routes_of_the_paths():
+    """The GW path's M = 131072 in complex64 takes the sm90 kernel; the
+    card test's odd M = 4099 the general one (but in complex128)."""
+    assert gu_ops.kernel_route(torch.complex64, 131072, True) == "sm90"
+    assert gu_ops.kernel_route(torch.float32, 131072, True) == "sm90"
+    assert gu_ops.kernel_route(torch.complex64, 4099, True) == "general"
+    assert gu_ops.kernel_route(torch.complex128, 4099, True) == "sm90"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64, torch.complex128])
+@pytest.mark.parametrize("K", [1, 9, 108, 500, 1500, 4000])
+@pytest.mark.parametrize("p", [1, 8, 33])
+def test_imgs_panel_kernel_route_rule(dtype, K, p):
+    """The sm90 kernel takes every K whose slab of 8 rows fits in its
+    shared memory, with the projection's and the update's footprints;
+    slab_rows never leaves that room, and gives one slab per SM."""
+    itemsize = dtype.itemsize
+    Kp, P = K | 1, min(p + p % 2, pp_ops.PMAX)
+
+    def fits(T):
+        return max(T * (Kp + P), T * Kp + K * P) * itemsize \
+            <= pp_ops.SMEM_BUDGET
+
+    want = "sm90" if fits(8) else "general"
+    assert pp_ops.kernel_route(dtype, K, p) == want
+    if want == "sm90":
+        T = pp_ops.slab_rows(10_000, K, p, itemsize, 132)
+        assert 8 <= T <= pp_ops.SLAB_ROWS and fits(T)
+        assert T == min(76, pp_ops.fit_rows(K, p, itemsize))
+
+
+def test_imgs_panel_slabs_of_the_blocked_path():
+    """At the blocked path's (10000, 108, 8) complex64, 132 slabs of 76
+    rows on 132 SMs: at least one CTA per SM."""
+    T = pp_ops.slab_rows(10_000, 108, 8, 8, 132)
+    assert T == 76 and -(-10_000 // T) == 132
+    assert pp_ops.kernel_route(torch.complex64, 108, 8) == "sm90"
+    assert pp_ops.slab_rows(100, 108, 8, 8, 132) == 8
+
+
+def _exported(name: str) -> set:
+    """The C entries ``csrc/<name>.cu`` exports: each ``extern "C"``
+    function and each name handed to an ``*_ENTRY`` macro."""
+    import re
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    return (set(re.findall(r'extern "C"[^(;]*?\b(\w+)\s*\(', src))
+            | set(re.findall(r"^\w+_ENTRY\((\w+),", src, re.M)))
+
+
+@pytest.mark.parametrize("module", ["greedy_update", "imgs_panel",
+                                    "imgs_project", "block_sweep",
+                                    "flash_attention"])
+def test_bound_entries_are_exported(module):
+    """Every C entry a wrapper binds through ctypes is exported by the
+    source it loads: a renamed entry fails here, not at first use on the
+    card."""
+    import importlib
+    ops = importlib.import_module(f"repro_torch.kernels.{module}.ops")
+    libs = getattr(ops, "_LIBS", None) or {
+        "": (module, ops._SIGNATURES)}
+    assert libs
+    for lib_name, signatures in libs.values():
+        assert lib_name in _build.SOURCES
+        missing = set(signatures) - _exported(lib_name)
+        assert not missing, (lib_name, missing)
+
+
+def test_general_entries_take_plain_version_on_cpu(rng):
+    """The general-route entries, on CPU tensors, are the plain versions
+    bit for bit too, and launch nothing."""
+    counts = (gu_ops.launches, pp_ops.launches)
+    q, S, acc, norms = _torch(*_update_inputs(rng, (40, 50), np.complex64))
+    for x, y in zip(gu_ops._greedy_update_general(q, S, acc, norms),
+                    greedy_update_ref(q, S, acc, norms)):
+        assert torch.equal(x, y)
+    V, Q = _torch(*_panel_inputs(rng, (40, 7, 3), np.complex64))
+    for x, y in zip(pp_ops._imgs_panel_general(V, Q), imgs_panel_ref(V, Q)):
+        assert torch.equal(x, y)
+    assert (gu_ops.launches, pp_ops.launches) == counts
