@@ -14,23 +14,29 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
   build      seconds to build the CUDA kernels (nvcc, at first use)
   kernels    each kernel vs its plain version at the paths' shapes and at
              small ragged ones, with the tolerance of each check, each call
-             on the route its wrapper's rule gives and, for greedy_update
-             and imgs_panel, on their general routes too (two launches
-             bitwise equal); times of the kernel, the plain version and the
-             one-call library yardstick (CUDA events, best of n, the card's
-             time alone: the host has issued a call before the card reaches
-             it), with the routes of a wrapper timed in turns, and the bound
+             on the route its wrapper's rule gives and, for greedy_update,
+             imgs_project and imgs_panel, on their general routes too (two
+             launches bitwise equal); both routes of greedy_update and
+             imgs_project with a false active flag on NaN-filled S / Q (the
+             zero-vector result exactly: the kernel never read them) and a
+             true one (bitwise the unflagged call); times of the kernel,
+             the plain version and the one-call library yardstick (CUDA
+             events, best of n, the card's time alone: the host has issued
+             a call before the card reaches it), with the routes of a
+             wrapper timed in turns, and the bound
   snapshots  generation of S on the card
   build_basis  the full-width greedy build through the front door;
              launches of each kernel (counted from 0 just before it), every
-             greedy_update launch on the sm90 route, orthogonality and
+             greedy_update and imgs_project launch on the sm90 route, the
+             sweeps that read S (the steps up to the latched stop: the
+             later ones' flags are false), orthogonality and
              per-column-error checks
   artifact   save/load bit-equality, EIM nodes
   roq        16 ROQ inner products against full quadrature
   block_build  the full-width blocked build through the front door, with
              the greedy basis freed first; launches counted from 0 just
-             before it, every imgs_panel launch on the sm90 route, the same
-             checks, k within the staleness bound
+             before it, every imgs_panel and imgs_project launch on the
+             sm90 route, the same checks, k within the staleness bound
 
   lm_kernels  flash_attention's two kernels vs the plain version at the
              serve path's shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16,
@@ -260,19 +266,85 @@ def check_imgs_panel(V, Q, general: bool = False) -> float:
     return err
 
 
-def check_imgs_project(v, Q) -> float:
-    from repro_torch.kernels.imgs_project.ops import imgs_project
+def check_imgs_project(v, Q, general: bool = False) -> float:
+    """Kernel vs plain on one input, on the route kernel_route gives (or,
+    with ``general``, the general kernel); the call must launch once, on
+    that route, and a second launch give the same bits."""
+    from repro_torch.kernels.imgs_project import ops as ip_ops
     from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 
-    vo, c = imgs_project(v, Q)
+    route = "general" if general else ip_ops.kernel_route(
+        Q.dtype, Q.shape[1])
+    fn = ip_ops._imgs_project_general if general else ip_ops.imgs_project
+    n0 = getattr(ip_ops, f"launches_{route}")
+    vo, c = fn(v, Q)
+    again = fn(v, Q)
     vr, cr = imgs_project_ref(v, Q)
     torch.cuda.synchronize()
+    check(getattr(ip_ops, f"launches_{route}") == n0 + 2,
+          f"imgs_project: the calls did not launch the {route} kernel")
+    check(torch.equal(vo, again[0]) and torch.equal(c, again[1]),
+          f"imgs_project [{route}]: two launches differ")
     tol = sum_tol(Q.dtype, Q.shape[0]) * float(torch.linalg.vector_norm(v))
     err = max(float((c - cr).abs().max()), float((vo - vr).abs().max()))
-    check(err <= tol, f"imgs_project: {err} > {tol}")
-    emit("kernels", kernel="imgs_project", dtype=str(Q.dtype),
+    check(err <= tol, f"imgs_project [{route}] {tuple(Q.shape)} "
+          f"{Q.dtype}: {err} > {tol}")
+    emit("kernels", kernel="imgs_project", route=route, dtype=str(Q.dtype),
          shape=list(Q.shape), max_abs_err=err, tol=tol)
     return err
+
+
+def check_flags(gen, dtype, dev) -> None:
+    """Both routes of greedy_update and imgs_project with a false active
+    flag return exactly what a zero vector gives with S / Q full of NaN
+    (so the kernel never read them), and with a true flag the bits of the
+    unflagged call; each case then a normal call on the same route, held
+    to the plain version (the counters the kernels take were left at 0)."""
+    from repro_torch.kernels.greedy_update import ops as gu_ops
+    from repro_torch.kernels.imgs_project import ops as ip_ops
+
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    S, q, acc, norms = random_update_inputs(gen, (300, 1024), dtype, dev)
+    # a tie of the largest residual norms - acc at columns 5 and 900: 5 wins
+    acc_t, norms_t = acc.clone(), norms.clone()
+    acc_t[5] = acc_t[900] = 0.5
+    norms_t[5] = norms_t[900] = (norms - acc).max() + 1.5
+    S_nan = torch.full_like(S, float("nan"))
+    Q = torch.linalg.qr(rand(gen, (N, MAX_K), dtype, dev))[0].contiguous()
+    Q_nan = torch.full_like(Q, float("nan"))
+    v = rand(gen, (N,), dtype, dev)
+    for general in (False, True):
+        fn = gu_ops._greedy_update_general if general else \
+            gu_ops.greedy_update
+        c, a, mx, am = fn(q, S_nan, acc_t, norms_t, off)
+        torch.cuda.synchronize()
+        check(torch.equal(c, torch.zeros_like(c)) and torch.equal(a, acc_t)
+              and int(am) == 5
+              and float(mx) == float((norms_t - acc_t).max()),
+              f"greedy_update [{general=}] {dtype}: a false flag did not "
+              "give the zero-vector result")
+        check(all(torch.equal(x, y) for x, y in
+                  zip(fn(q, S, acc, norms, on), fn(q, S, acc, norms))),
+              f"greedy_update [{general=}] {dtype}: a true flag changed "
+              "the bits")
+        check_greedy_update(S, q, acc, norms, exact_argmax=True,
+                            general=general)
+        fn = ip_ops._imgs_project_general if general else \
+            ip_ops.imgs_project
+        vo, c = fn(v, Q_nan, off)
+        torch.cuda.synchronize()
+        check(torch.equal(vo, v) and torch.equal(c, torch.zeros_like(c)),
+              f"imgs_project [{general=}] {dtype}: a false flag did not "
+              "give the zero-vector result")
+        check(all(torch.equal(x, y) for x, y in
+                  zip(fn(v, Q, on), fn(v, Q))),
+              f"imgs_project [{general=}] {dtype}: a true flag changed "
+              "the bits")
+        check_imgs_project(v, Q, general)
+    emit("kernels", check="active_flag", dtype=str(dtype),
+         kernels=["greedy_update", "imgs_project"],
+         routes=["sm90", "general"], ok=True)
 
 
 def random_update_inputs(gen, shape, dtype, dev):
@@ -388,7 +460,7 @@ def kernel_phase(S, dev) -> dict:
     from repro_torch.kernels.block_sweep.ref import block_sweep_ref
     from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
-    from repro_torch.kernels.imgs_project.ops import imgs_project
+    from repro_torch.kernels.imgs_project import ops as ip_ops
     from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 
     gen = torch.Generator().manual_seed(SEED)
@@ -401,9 +473,18 @@ def kernel_phase(S, dev) -> dict:
                 check_greedy_update(
                     *random_update_inputs(gen, shape, dtype, dev),
                     exact_argmax=True, general=general)
-        for shape in ((33, 17), (513, 37)):
-            Q = torch.linalg.qr(rand(gen, shape, dtype, dev))[0].contiguous()
-            check_imgs_project(rand(gen, (shape[0],), dtype, dev), Q)
+        # both routes: odd K, a ragged last slab (N off a multiple of a
+        # CTA's rows), K 1, 8 and 100, and N = 40,001: every SM, rows past
+        # what fits in shared memory (two chunks a CTA)
+        for shape in ((33, 17), (513, 37), (2113, 7), (3001, 1), (3001, 8),
+                      (1000, 100), (40001, 100)):
+            Q = torch.linalg.qr(rand(gen, shape, dtype, dev))[0]
+            if shape[1] > 1:   # an empty slot of the basis
+                Q[:, shape[1] // 2] = 0
+            v = rand(gen, (shape[0],), dtype, dev)
+            for general in (False, True):
+                check_imgs_project(v, Q.contiguous(), general)
+        check_flags(gen, dtype, dev)
         # p below, at and above the kernels' widest panel of 32; a zero
         # column stands for a rejected candidate / an empty slot
         for n, m, p in ((17, 33, 1), (300, 700, 3), (257, 130, 8),
@@ -437,13 +518,21 @@ def kernel_phase(S, dev) -> dict:
     Q[:, :MAX_K // 2] = torch.linalg.qr(
         rand(gen, (N, MAX_K // 2), S.dtype, dev))[0]
     v = rand(gen, (N,), S.dtype, dev)
+    check(ip_ops.kernel_route(S.dtype, MAX_K) == "sm90",
+          "imgs_project: the path's shape is not on the sm90 route")
     # bytes: Q and v read once; c and v' written once
-    out["imgs_project"] = timed(
+    out.update(timed_turns(
         "imgs_project", [N, MAX_K], S.dtype,
         Q.nbytes + 2 * v.nbytes + MAX_K * Q.element_size(),
-        2 * macs_flops(S.dtype) * N * MAX_K, check_imgs_project(v, Q), 50,
-        lambda: imgs_project(v, Q), lambda: imgs_project_ref(v, Q),
-        lambda: torch.addmv(v, Q, torch.mv(Q.mH, v), alpha=-1))
+        2 * macs_flops(S.dtype) * N * MAX_K,
+        {"imgs_project": check_imgs_project(v, Q),
+         "imgs_project_general": check_imgs_project(v, Q, general=True)},
+        50,
+        {"imgs_project": lambda: ip_ops.imgs_project(v, Q),
+         "imgs_project_general": lambda: ip_ops._imgs_project_general(v, Q)},
+        lambda: imgs_project_ref(v, Q),
+        lambda: torch.addmv(v, Q, torch.mv(Q.mH, v), alpha=-1),
+        host_reps=50))
 
     # block_sweep at the blocked path's (N, M) and p
     Qnew = torch.linalg.qr(rand(gen, (N, BLOCK_P), S.dtype, dev))[0] \
@@ -789,7 +878,8 @@ def main() -> None:
                 "flash_attention": fa_ops}
 
     # the wrappers that route between two kernels count each route apart
-    routed = ("greedy_update", "imgs_panel", "flash_attention")
+    routed = ("greedy_update", "imgs_project", "imgs_panel",
+              "flash_attention")
 
     def reset_counts():
         for mod in counters.values():
@@ -838,11 +928,15 @@ def main() -> None:
     cols = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :8192].to(dev)
 
-    def drive(phase, sweeps_with, path_kernels, sm90_only, **spec):
+    def drive(phase, sweeps_with, flagged, path_kernels, sm90_only,
+              **spec):
         """One full-width build through the front door, its kernels'
         launches counted from 0 just before it; checks that every launch of
         the kernels in ``sm90_only`` took the sm90 route, orthogonality and
-        the error on 8192 sampled columns; emits the phase line."""
+        the error on 8192 sampled columns; emits the phase line, with the
+        sweeps (launches of ``sweeps_with``) that read S: with ``flagged``
+        (the sweep takes the driver's active flag) those of the live
+        steps."""
         reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -872,10 +966,17 @@ def main() -> None:
         last = float(b.errs[-1])
         check(pce <= 1.5 * last,
               f"{phase}: per-column error {pce} > 1.5 * {last}")
+        # the sweeps that read S: with ``flagged`` those of the steps up to
+        # the latched stop (the later steps' flags are false), k plus the
+        # latched step whose basis a rank or tau stop drops; else all
+        read = launches[sweeps_with]
+        if flagged:
+            read = k + (b.provenance["stop"] in ("STOP_RANK", "STOP_TAU"))
         emit(phase, k=k, stop=b.provenance["stop"], tau=TAU,
              block_p=b.provenance["block_p"], wall_s=wall,
-             s_per_basis=wall / k,
-             swept_gb_s=launches[sweeps_with] * S.nbytes / wall / 1e9,
+             s_per_basis=wall / k, sweeps_launched=launches[sweeps_with],
+             sweeps_read_s=read,
+             swept_gb_s=read * S.nbytes / wall / 1e9,
              launches=launches, orthogonality=defect,
              orthogonality_bound=defect_bound, max_sampled_col_err=pce,
              last_err=last, col_err_bound=1.5 * last,
@@ -885,9 +986,10 @@ def main() -> None:
         return b, launches
 
     # --- the greedy path: build_basis at full width
-    basis, launches = drive("build_basis", "greedy_update",
+    basis, launches = drive("build_basis", "greedy_update", True,
                             ("greedy_update", "imgs_project"),
-                            ("greedy_update",), strategy="greedy")
+                            ("greedy_update", "imgs_project"),
+                            strategy="greedy")
     k = basis.k
 
     # --- artifact: save, load, bit-equal; EIM
@@ -945,10 +1047,10 @@ def main() -> None:
     # --- the blocked path: the greedy basis freed first
     del basis, back, omega, interp
     torch.cuda.empty_cache()
-    blk, blk_launches = drive("block_build", "block_sweep",
+    blk, blk_launches = drive("block_build", "block_sweep", False,
                               ("block_sweep", "imgs_panel", "imgs_project"),
-                              ("imgs_panel",), strategy="block_greedy",
-                              block_p=BLOCK_P)
+                              ("imgs_panel", "imgs_project"),
+                              strategy="block_greedy", block_p=BLOCK_P)
     # pivot staleness costs at most ~15% more bases (the reference's
     # bound, tests/test_block_greedy.py) plus one block of headroom
     check(5 <= blk.k <= int(1.15 * k) + BLOCK_P,
@@ -972,9 +1074,12 @@ def main() -> None:
             ("greedy_update_general", "src/repro_torch/csrc/greedy_update.cu",
              "src/repro/kernels/greedy_update/kernel.py:108,147", launches,
              "greedy_update_general"),
-            ("imgs_project", "src/repro_torch/csrc/imgs_project.cu",
+            ("imgs_project", "src/repro_torch/csrc/imgs_project_sm90.cu",
              "src/repro/kernels/imgs_project/kernel.py:67", launches,
-             "imgs_project"),
+             "imgs_project_sm90"),
+            ("imgs_project_general", "src/repro_torch/csrc/imgs_project.cu",
+             "src/repro/kernels/imgs_project/kernel.py:67", launches,
+             "imgs_project_general"),
             ("block_sweep", "src/repro_torch/csrc/block_sweep.cu",
              "src/repro/kernels/block_sweep/kernel.py:86,119", blk_launches,
              "block_sweep"),

@@ -64,26 +64,31 @@ def resolve_backend(backend: str | None = None) -> str:
 
 
 def pivot_update(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
-                 norms_sq: torch.Tensor, backend: str | None = None):
+                 norms_sq: torch.Tensor, backend: str | None = None,
+                 active: torch.Tensor | None = None):
     """Fused Eq.-(6.3) update: ``c = q^H S``, ``acc + |c|^2``, argmax.
 
     Returns ``(c, acc_out, max_res, argmax)``.  ``max_res``/``argmax``
     describe the residual AFTER this update, i.e. the next iteration's
     pivot: the greedy driver re-derives its pivot from ``norms_sq - acc``
     and ignores them, but a driver that folds pivots across column tiles
-    uses them.  ``acc`` is not modified.
+    uses them.  ``acc`` is not modified.  ``active``: an optional 0-d bool
+    device tensor (``None``: true); where it is false the update is the one
+    q = 0 gives, and the kernels do not read S.
     """
     if resolve_backend(backend) == "ref":
-        return greedy_update_ref(q, S, acc, norms_sq)
-    return greedy_update(q, S, acc, norms_sq)
+        return greedy_update_ref(q, S, acc, norms_sq, active)
+    return greedy_update(q, S, acc, norms_sq, active)
 
 
 def project_pass(v: torch.Tensor, Q: torch.Tensor,
-                 backend: str | None = None):
-    """One classical-GS pass: returns ``(v - Q Q^H v, Q^H v)``."""
+                 backend: str | None = None,
+                 active: torch.Tensor | None = None):
+    """One classical-GS pass: returns ``(v - Q Q^H v, Q^H v)``; where the
+    optional 0-d bool ``active`` is false, ``(v, 0)`` without reading Q."""
     if resolve_backend(backend) == "ref":
-        return imgs_project_ref(v, Q)
-    return imgs_project(v, Q)
+        return imgs_project_ref(v, Q, active)
+    return imgs_project(v, Q, active)
 
 
 def block_sweep(Qnew: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,

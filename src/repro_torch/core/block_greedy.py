@@ -77,21 +77,24 @@ def _ortho_block(S, Q, top_idx, idx, active, p, kappa, max_passes, thresh,
     ``panel=True`` (p > 1) runs :func:`panel_imgs_orthogonalize`;
     ``panel=False`` keeps p sequential :func:`imgs_orthogonalize` calls
     with fixed-slot writes.  Both span the same space and differ only in
-    float summation order.
+    float summation order.  Where ``active`` is false the GS passes do not
+    read ``Q`` (their results are discarded with the block).
 
     Returns ``(Qnew, oks, rnorms, n_passes)``.
     """
     if panel and p > 1:
         V = S.index_select(1, top_idx)                     # (N, p)
         Qnew, oks, rnorms, npasses = panel_imgs_orthogonalize(
-            V, Q, kappa, max_passes, thresh=thresh, backend=backend)
+            V, Q, kappa, max_passes, thresh=thresh, backend=backend,
+            active=active)
         _put(Q, 1, idx, Qnew, active)
         return Qnew, oks, rnorms, npasses
     qs, oks, rnorms, npasses = [], [], [], []
     for i in range(p):
         v = S.index_select(1, top_idx[i:i + 1]).squeeze(1)
         q, _, rnorm, n_pass = imgs_orthogonalize(v, Q, kappa, max_passes,
-                                                 backend=backend)
+                                                 backend=backend,
+                                                 active=active)
         ok = rnorm > thresh
         q = torch.where(ok, q, torch.zeros_like(q))
         # the later candidates of the block see this one in Q

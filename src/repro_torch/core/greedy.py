@@ -22,6 +22,11 @@ without host syncs this way:
   latched stop writes nothing.  The host reads ``(k, stop)`` once per
   chunk.
 
+Both masks also reach the kernels as an on-device ``active`` flag: a pass
+past the kappa test, and every pass and sweep of a step after the latched
+stop, return without reading Q or S (what a zero vector would give), so
+the masked work costs a launch, not a read of the data.
+
 The driver state is updated IN PLACE (``Q``, ``R``, ``acc`` and the
 per-step vectors), where the reference donated its buffers.
 
@@ -91,25 +96,35 @@ class GreedyState(NamedTuple):
 
 
 def imgs_orthogonalize(v: torch.Tensor, Q: torch.Tensor, kappa: float = 2.0,
-                       max_passes: int = 3, backend: str | None = None):
+                       max_passes: int = 3, backend: str | None = None,
+                       active: torch.Tensor | None = None):
     """Hoffmann iterated (classical) Gram-Schmidt with ratio test kappa.
 
     Orthogonalizes ``v`` against the columns of ``Q`` (zero columns are
     no-ops).  A pass re-runs while the norm dropped by more than a factor
-    ``kappa``, up to ``max_passes``.  All ``max_passes`` passes are run;
-    the ones past the test are masked on the device, so nothing syncs.
+    ``kappa``, up to ``max_passes``.  All ``max_passes`` passes are
+    launched; the ones past the test are masked on the device, so nothing
+    syncs, and are told so by their ``active`` flag, so they do not read
+    ``Q``.
+
+    ``active``: an optional 0-d bool device tensor (``None``: true) that
+    masks the whole call: pass 1 gets it, pass n > 1 ``active & rerun``.
+    Where it is false the result is meaningless and the caller discards it.
 
     Returns ``(q, coeffs, rnorm, n_passes)`` with
     ``v = Q @ coeffs + rnorm * q`` and ``|q|_2 = 1`` (when rnorm > 0);
     ``rnorm`` and ``n_passes`` are 0-d device tensors.
     """
     norm_prev = torch.linalg.vector_norm(v)
-    v_cur, coeffs = _backend.project_pass(v, Q, backend=backend)
+    v_cur, coeffs = _backend.project_pass(v, Q, backend=backend,
+                                          active=active)
     norm_cur = torch.linalg.vector_norm(v_cur)
     n = torch.ones((), dtype=torch.int32, device=v.device)
     for _ in range(1, max_passes):
         rerun = (norm_cur < norm_prev / kappa) & (n < max_passes)
-        v_next, c = _backend.project_pass(v_cur, Q, backend=backend)
+        v_next, c = _backend.project_pass(
+            v_cur, Q, backend=backend,
+            active=rerun if active is None else active & rerun)
         v_cur = torch.where(rerun, v_next, v_cur)
         coeffs = torch.where(rerun, coeffs + c, coeffs)
         norm_prev = torch.where(rerun, norm_cur, norm_prev)
@@ -122,7 +137,8 @@ def imgs_orthogonalize(v: torch.Tensor, Q: torch.Tensor, kappa: float = 2.0,
 
 def panel_imgs_orthogonalize(V: torch.Tensor, Q: torch.Tensor,
                              kappa: float = 2.0, max_passes: int = 3,
-                             thresh=0.0, backend: str | None = None):
+                             thresh=0.0, backend: str | None = None,
+                             active: torch.Tensor | None = None):
     """BLAS-3 panel orthogonalization: p candidates against Q at once.
 
     The steps of the reference (:func:`repro.core.greedy`'s namesake):
@@ -140,8 +156,13 @@ def panel_imgs_orthogonalize(V: torch.Tensor, Q: torch.Tensor,
     4. the BCGS2 re-orthogonalization cycle (a second vs-Q panel pass and
        one within-panel sweep on the normalized panel), needed when an
        accepted candidate lost more than ``kappa`` in step 2.  It is
-       always computed and selected with ``torch.where``, so nothing
-       syncs.
+       always launched and selected with ``torch.where``, so nothing
+       syncs; its sweep's passes are told by their ``active`` flag
+       whether it is needed, and skip reading the panel when not.
+
+    ``active``: an optional 0-d bool device tensor (``None``: true); where
+    it is false the within-panel passes do not read the panel, and the
+    result is meaningless (the caller discards it).
 
     Returns ``(P, oks, rnorms, n_passes)``: the (N, p) panel (rejected
     columns zero), the (p,) rank-guard verdicts, the (p,) residual norms
@@ -167,7 +188,8 @@ def panel_imgs_orthogonalize(V: torch.Tensor, Q: torch.Tensor,
     oks, rnorms, extra = [], [], []
     for i in range(p):
         q, _, rnorm, n_pass = imgs_orthogonalize(
-            V_cur[:, i].contiguous(), P, kappa, max_passes, backend=backend)
+            V_cur[:, i].contiguous(), P, kappa, max_passes, backend=backend,
+            active=active)
         ok = rnorm > thresh
         P[:, i] = torch.where(ok, q, torch.zeros_like(q))
         oks.append(ok)
@@ -177,11 +199,12 @@ def panel_imgs_orthogonalize(V: torch.Tensor, Q: torch.Tensor,
     rnorms = torch.stack(rnorms)
 
     need_reortho = torch.any(oks & (rnorms * kappa < norm_cur))
+    reortho = need_reortho if active is None else active & need_reortho
     P2, _ = _backend.panel_project(P, Q, backend=backend)
     P_re = torch.zeros_like(P)
     for i in range(p):
         v, _ = _backend.project_pass(P2[:, i].contiguous(), P_re,
-                                     backend=backend)
+                                     backend=backend, active=reortho)
         nrm = torch.linalg.vector_norm(v)
         safe = torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny)
         P_re[:, i] = torch.where(oks[i], v / safe.to(v.dtype),
@@ -233,12 +256,12 @@ def _step(S, state: GreedyState, active, kappa, max_passes, backend):
     err = torch.sqrt(err_sq)
     v = S.index_select(1, j.view(1)).squeeze(1)
     q, _, rnorm, n_pass = imgs_orthogonalize(v, state.Q, kappa, max_passes,
-                                             backend=backend)
+                                             backend=backend, active=active)
     # Row k of R and the Eq.-(6.3) update in one fused S pass.  The kernel's
     # post-update max/argmax belong to the NEXT pivot; this step re-derives
-    # the pivot from norms_sq - acc above.
+    # the pivot from norms_sq - acc above.  A masked step does not read S.
     c, acc, _, _ = _backend.pivot_update(q, S, state.acc, state.norms_sq,
-                                         backend=backend)
+                                         backend=backend, active=active)
     kk = state.k.view(1)
     _put(state.Q, 1, kk, q.unsqueeze(1), active)
     _put(state.R, 0, kk, c.unsqueeze(0), active)
@@ -445,7 +468,8 @@ def _greedy_chunk(S, state, n_steps, tau, scale, ref_sq, refresh_safety,
 
     The stop code of each step is checked in the reference's order (rank
     guard, tau, refresh trigger), compared on the device in the residual
-    dtype.  Once a code latches, the remaining steps write nothing.
+    dtype.  Once a code latches, the remaining steps write nothing, and
+    their kernels read neither Q nor S.
     Returns ``(state, stop)`` with ``stop`` a 0-d int32 device tensor.
     """
     eps = torch.finfo(state.norms_sq.dtype).eps

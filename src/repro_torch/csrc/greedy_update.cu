@@ -27,6 +27,11 @@
 //   * q is staged through shared memory in chunks of QCHUNK rows.
 //   * Accumulation is in the working precision (double for f64/c128; the
 //     TPU kernel summed those in f32).
+//   * An optional on-device flag (a bool; null means true) says whether
+//     the sweep is live.  Each block reads it first; where it is false the
+//     block skips S and writes what q = 0 gives: c = 0, acc_out = acc, and
+//     its (max, first index) of norms - acc.  Every block reads the same
+//     flag, so all take the same branch.
 //   * The cross-block argmax is a second launch over the per-block
 //     (max, index) pairs.  The comparison is a total order (larger value,
 //     then smaller index), so the result is the same on every run and
@@ -77,15 +82,17 @@ __global__ void __launch_bounds__(THREADS)
     sweep(const repro::elem_t<R, CPLX>* __restrict__ q,
           const repro::elem_t<R, CPLX>* __restrict__ S,
           const R* __restrict__ acc, const R* __restrict__ norms,
+          const bool* __restrict__ active,
           repro::elem_t<R, CPLX>* __restrict__ c, R* __restrict__ acc_out,
           R* __restrict__ bmax, long long* __restrict__ bidx, long long N,
           long long M) {
   using E = repro::elem_t<R, CPLX>;
   __shared__ E qs[QCHUNK];
+  const bool live = active == nullptr || *active;
   const long long col = (long long)blockIdx.x * THREADS + threadIdx.x;
   const bool ok = col < M;
   R re = 0, im = 0;
-  for (long long n0 = 0; n0 < N; n0 += QCHUNK) {
+  for (long long n0 = 0; live && n0 < N; n0 += QCHUNK) {
     const int rows = (int)(N - n0 < QCHUNK ? N - n0 : QCHUNK);
     __syncthreads();
     for (int r = threadIdx.x; r < rows; r += THREADS) qs[r] = q[n0 + r];
@@ -109,7 +116,7 @@ __global__ void __launch_bounds__(THREADS)
   long long i = 0x7fffffffffffffffLL;
   if (ok) {
     repro::put(c + col, re, im);
-    R a = acc[col] + (re * re + im * im);
+    const R a = live ? acc[col] + (re * re + im * im) : acc[col];
     acc_out[col] = a;
     v = norms[col] - a;
     i = col;
@@ -139,7 +146,8 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
 
 template <typename R, bool CPLX>
 int launch(const void* q, const void* S, const void* acc, const void* norms,
-           void* c, void* acc_out, void* bmax, void* bidx, void* out_max,
+           const void* active, void* c, void* acc_out, void* bmax,
+           void* bidx, void* out_max,
            void* out_idx, long long N, long long M, void* stream) {
   using E = repro::elem_t<R, CPLX>;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -147,7 +155,8 @@ int launch(const void* q, const void* S, const void* acc, const void* norms,
   sweep<R, CPLX><<<nb, THREADS, 0, st>>>(
       static_cast<const E*>(q), static_cast<const E*>(S),
       static_cast<const R*>(acc), static_cast<const R*>(norms),
-      static_cast<E*>(c), static_cast<R*>(acc_out), static_cast<R*>(bmax),
+      static_cast<const bool*>(active), static_cast<E*>(c),
+      static_cast<R*>(acc_out), static_cast<R*>(bmax),
       static_cast<long long*>(bidx), N, M);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -164,12 +173,15 @@ extern "C" long long greedy_update_num_blocks(long long M) {
   return (M + THREADS - 1) / THREADS;
 }
 
+// q (N,), S (N, M) row-major; `active` a device bool or null (true).
+// Returns the CUDA error of the launches (0: none).
 #define GREEDY_UPDATE_ENTRY(NAME, R, CPLX)                                   \
   extern "C" int NAME(const void* q, const void* S, const void* acc,         \
-                      const void* norms, void* c, void* acc_out, void* bmax, \
-                      void* bidx, void* out_max, void* out_idx, long long N, \
-                      long long M, void* stream) {                           \
-    return launch<R, CPLX>(q, S, acc, norms, c, acc_out, bmax, bidx,         \
+                      const void* norms, const void* active, void* c,        \
+                      void* acc_out, void* bmax, void* bidx, void* out_max,  \
+                      void* out_idx, long long N, long long M,               \
+                      void* stream) {                                        \
+    return launch<R, CPLX>(q, S, acc, norms, active, c, acc_out, bmax, bidx, \
                            out_max, out_idx, N, M, stream);                  \
   }
 

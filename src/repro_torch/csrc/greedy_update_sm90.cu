@@ -29,6 +29,12 @@
 //     place, no plane copies.
 //   * Each consumer sums its column over the rows in order in the working
 //     precision (double for f64 / c128).
+//   * An optional on-device flag (a bool; null means true) says whether
+//     the sweep is live.  Each CTA reads it first; where it is false the
+//     producer issues no load and the consumers write what q = 0 gives:
+//     c = 0, acc_out = acc, and the (max, first index) of norms - acc,
+//     folded through the ticket as in a live sweep (so the counter is left
+//     at 0).  Every CTA reads the same flag, so all take the same branch.
 //   * One launch per sweep: each CTA writes its (max, first index) pair and
 //     takes a ticket; the CTA that takes the last ticket folds every pair
 //     and resets the counter to 0 for the next launch on the stream.  The
@@ -99,6 +105,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     sweep(const __grid_constant__ CUtensorMap smap,
           const __grid_constant__ CUtensorMap qmap, int words,
           const R* __restrict__ acc, const R* __restrict__ norms,
+          const bool* __restrict__ active,
           repro::elem_t<R, CPLX>* __restrict__ c, R* __restrict__ acc_out,
           R* __restrict__ bmax, long long* __restrict__ bidx,
           int* __restrict__ ticket, R* __restrict__ out_max,
@@ -113,7 +120,9 @@ __global__ void __launch_bounds__(THREADS, 2)
   E* sS = reinterpret_cast<E*>(smem);                       // STAGES x RS x W
   E* sq = reinterpret_cast<E*>(smem + STAGES * STAGE_BYTES);  // STAGES x RS
   const long long col0 = (long long)blockIdx.x * W;
-  const int n_stages = (int)((N + RS - 1) / RS);
+  const bool live = active == nullptr || *active;
+  // a sweep that is not live streams no stage
+  const int n_stages = live ? (int)((N + RS - 1) / RS) : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -161,7 +170,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   long long i = 0x7fffffffffffffffLL;
   if (col < M) {
     repro::put(c + col, re, im);
-    const R a = acc[col] + (re * re + im * im);
+    const R a = live ? acc[col] + (re * re + im * im) : acc[col];
     acc_out[col] = a;
     v = norms[col] - a;
     i = col;
@@ -217,7 +226,8 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr,
 
 template <typename R, bool CPLX>
 int launch(const void* q, const void* S, const void* acc, const void* norms,
-           void* c, void* acc_out, void* bmax, void* bidx, void* ticket,
+           const void* active, void* c, void* acc_out, void* bmax,
+           void* bidx, void* ticket,
            void* out_max, void* out_idx, long long N, long long M,
            void* stream) {
   using E = repro::elem_t<R, CPLX>;
@@ -245,7 +255,8 @@ int launch(const void* q, const void* S, const void* acc, const void* norms,
   sweep<R, CPLX><<<(unsigned)nb, THREADS, smem,
                    static_cast<cudaStream_t>(stream)>>>(
       smap, qmap, words, static_cast<const R*>(acc),
-      static_cast<const R*>(norms), static_cast<E*>(c),
+      static_cast<const R*>(norms), static_cast<const bool*>(active),
+      static_cast<E*>(c),
       static_cast<R*>(acc_out), static_cast<R*>(bmax),
       static_cast<long long*>(bidx), static_cast<int*>(ticket),
       static_cast<R*>(out_max), static_cast<long long*>(out_idx), N, M);
@@ -260,15 +271,16 @@ extern "C" long long greedy_update_sm90_num_blocks(long long M) {
 }
 
 // q (N,), S (N, M) row-major with 16-byte aligned bases and M * itemsize a
-// multiple of 16; `ticket` one int at 0, left at 0.  Returns the CUDA error
-// of the launch (0: none).
+// multiple of 16; `active` a device bool or null (true); `ticket` one int
+// at 0, left at 0.  Returns the CUDA error of the launch (0: none).
 #define GREEDY_UPDATE_SM90_ENTRY(NAME, R, CPLX)                              \
   extern "C" int NAME(const void* q, const void* S, const void* acc,         \
-                      const void* norms, void* c, void* acc_out, void* bmax, \
-                      void* bidx, void* ticket, void* out_max, void* out_idx, \
-                      long long N, long long M, void* stream) {              \
-    return launch<R, CPLX>(q, S, acc, norms, c, acc_out, bmax, bidx, ticket, \
-                           out_max, out_idx, N, M, stream);                  \
+                      const void* norms, const void* active, void* c,        \
+                      void* acc_out, void* bmax, void* bidx, void* ticket,   \
+                      void* out_max, void* out_idx, long long N, long long M, \
+                      void* stream) {                                        \
+    return launch<R, CPLX>(q, S, acc, norms, active, c, acc_out, bmax, bidx, \
+                           ticket, out_max, out_idx, N, M, stream);          \
   }
 
 GREEDY_UPDATE_SM90_ENTRY(greedy_update_sm90_f32, float, false)

@@ -1,4 +1,6 @@
-// imgs_project: one classical Gram-Schmidt pass for Hopper.
+// imgs_project: one classical Gram-Schmidt pass for Hopper, the general
+// route: K whose slab of 8 rows does not fit in shared memory; the rest
+// takes imgs_project_sm90.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/imgs_project/kernel.py
 // imgs_project_real (:67; bodies _proj_kernel :31, _update_kernel :48),
@@ -25,6 +27,10 @@
 //     reduces with a fixed shuffle tree.
 //   * Accumulation is in the working precision (float for f32/c64,
 //     double for f64/c128).
+//   * An optional on-device flag (a bool; null means true) says whether
+//     the pass is live.  Each block of both launches reads it first; where
+//     it is false the block skips Q and writes what Q = 0 gives: c = 0 and
+//     v' = v.
 #include "common.cuh"
 
 namespace {
@@ -36,10 +42,15 @@ template <typename R, bool CPLX>
 __global__ void __launch_bounds__(PROJ_THREADS)
     proj(const repro::elem_t<R, CPLX>* __restrict__ v,
          const repro::elem_t<R, CPLX>* __restrict__ Q,
+         const bool* __restrict__ active,
          repro::elem_t<R, CPLX>* __restrict__ c, long long N, long long K) {
   __shared__ R sre[PROJ_THREADS];
   __shared__ R sim[PROJ_THREADS];
   const long long k = blockIdx.x;
+  if (active != nullptr && !*active) {  // the same in every block
+    if (threadIdx.x == 0) repro::put(c + k, R(0), R(0));
+    return;
+  }
   R re = 0, im = 0;
   for (long long n = threadIdx.x; n < N; n += PROJ_THREADS)
     repro::conj_mul_acc(Q[n * K + k], v[n], re, im);
@@ -61,12 +72,17 @@ __global__ void __launch_bounds__(UPDATE_THREADS)
     update(const repro::elem_t<R, CPLX>* __restrict__ v,
            const repro::elem_t<R, CPLX>* __restrict__ Q,
            const repro::elem_t<R, CPLX>* __restrict__ c,
+           const bool* __restrict__ active,
            repro::elem_t<R, CPLX>* __restrict__ v_out, long long N,
            long long K) {
   const long long row =
       (long long)blockIdx.x * (UPDATE_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= N) return;  // whole warps leave together; no block barrier
+  if (active != nullptr && !*active) {
+    if (lane == 0) v_out[row] = v[row];
+    return;
+  }
   R re = 0, im = 0;
   const auto* qrow = Q + row * K;
   for (long long k = lane; k < K; k += 32)
@@ -83,12 +99,13 @@ __global__ void __launch_bounds__(UPDATE_THREADS)
 }
 
 template <typename R, bool CPLX>
-int launch(const void* v, const void* Q, void* c, void* v_out, long long N,
-           long long K, void* stream) {
+int launch(const void* v, const void* Q, const void* active, void* c,
+           void* v_out, long long N, long long K, void* stream) {
   using E = repro::elem_t<R, CPLX>;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool* flag = static_cast<const bool*>(active);
   proj<R, CPLX><<<(unsigned)K, PROJ_THREADS, 0, st>>>(
-      static_cast<const E*>(v), static_cast<const E*>(Q),
+      static_cast<const E*>(v), static_cast<const E*>(Q), flag,
       static_cast<E*>(c), N, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -96,16 +113,19 @@ int launch(const void* v, const void* Q, void* c, void* v_out, long long N,
   update<R, CPLX><<<(unsigned)((N + rows_per_block - 1) / rows_per_block),
                     UPDATE_THREADS, 0, st>>>(
       static_cast<const E*>(v), static_cast<const E*>(Q),
-      static_cast<const E*>(c), static_cast<E*>(v_out), N, K);
+      static_cast<const E*>(c), flag, static_cast<E*>(v_out), N, K);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define IMGS_PROJECT_ENTRY(NAME, R, CPLX)                                  \
-  extern "C" int NAME(const void* v, const void* Q, void* c, void* v_out,  \
-                      long long N, long long K, void* stream) {            \
-    return launch<R, CPLX>(v, Q, c, v_out, N, K, stream);                  \
+// v (N,), Q (N, K) row-major; `active` a device bool or null (true); c (K,)
+// and v_out (N,) written.  Returns the CUDA error of the launches (0: none).
+#define IMGS_PROJECT_ENTRY(NAME, R, CPLX)                                   \
+  extern "C" int NAME(const void* v, const void* Q, const void* active,     \
+                      void* c, void* v_out, long long N, long long K,       \
+                      void* stream) {                                       \
+    return launch<R, CPLX>(v, Q, active, c, v_out, N, K, stream);           \
   }
 
 IMGS_PROJECT_ENTRY(imgs_project_f32, float, false)

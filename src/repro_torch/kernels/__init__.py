@@ -3,8 +3,9 @@
 against) and ``ops.py`` (the wrapper: checks, launch, launch counter):
 
 - ``greedy_update`` — the Eq.-(6.3) pivot-search sweep
-  (``csrc/greedy_update.cu``).
-- ``imgs_project``  — one iterated-GS pass (``csrc/imgs_project.cu``).
+  (``csrc/greedy_update_sm90.cu``, ``csrc/greedy_update.cu``).
+- ``imgs_project``  — one iterated-GS pass (``csrc/imgs_project_sm90.cu``,
+  ``csrc/imgs_project.cu``).
 - ``block_sweep``   — the blocked Eq.-(6.3) sweep, p bases per read of S
   (``csrc/block_sweep.cu``).
 - ``imgs_panel``    — one iterated-GS pass on a panel of p candidates

@@ -36,6 +36,17 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor,
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+def flag_ptr(kernel: str, active, device: torch.device) -> ctypes.c_void_p:
+    """The pointer a kernel reads its ``active`` flag through: null for
+    ``None`` (active), else that of a 0-d bool tensor on ``device``.  A
+    kernel that reads false skips its big input and writes what a zero
+    basis vector would give."""
+    if active is None:
+        return ctypes.c_void_p(None)
+    check_tensor(kernel, "active", active, torch.bool, (), device)
+    return ptr(active)
+
+
 def kernel_dtype(kernel: str, dtype: torch.dtype) -> str:
     """The C entry suffix for ``dtype``; raises on a dtype with no kernel."""
     try:
@@ -58,6 +69,7 @@ def base_aligned16(*tensors: torch.Tensor) -> bool:
 # own.
 _tickets: dict = {}
 _scratch: dict = {}
+_barriers: dict = {}
 
 
 def ticket_counters(device: torch.device, stream: ctypes.c_void_p,
@@ -70,6 +82,18 @@ def ticket_counters(device: torch.device, stream: ctypes.c_void_p,
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _tickets[key] = buf
+    return buf
+
+
+def barrier_counter(device: torch.device,
+                    stream: ctypes.c_void_p) -> torch.Tensor:
+    """One int32 at 0 for a kernel's grid-wide barrier, used by no other
+    kernel: each barrier flips its top bit and leaves the low bits at 0."""
+    key = (device.index, stream.value)
+    buf = _barriers.get(key)
+    if buf is None:
+        buf = torch.zeros(1, dtype=torch.int32, device=device)
+        _barriers[key] = buf
     return buf
 
 

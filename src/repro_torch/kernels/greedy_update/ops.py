@@ -12,6 +12,12 @@ raises:
   per sweep) takes the rest: odd M in complex64 / float64, M % 4 != 0 in
   float32, unaligned views.
 
+Both kernels take an optional on-device ``active`` flag (a 0-d bool
+tensor): where it is false, every CTA returns without reading S, having
+written what q = 0 gives (c = 0, ``acc_out = acc``, the first-index argmax
+of ``norms_sq - acc``).  The greedy driver passes its latched "no stop
+yet" flag, so the masked steps after a stop do not sweep S.
+
 ``launches`` counts calls that launched either kernel; ``launches_sm90``
 and ``launches_general`` count them by route.
 """
@@ -24,7 +30,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    DTYPE_SUFFIX, base_aligned16, check_tensor, kernel_dtype, ptr,
+    DTYPE_SUFFIX, base_aligned16, check_tensor, flag_ptr, kernel_dtype, ptr,
     raise_on_error, stream_ptr, ticket_counters,
 )
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
@@ -36,14 +42,14 @@ launches_general = 0
 _LIBS = {
     "general": ("greedy_update", {
         **{f"greedy_update_{sfx}": (
-            [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
+            [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
             + [ctypes.c_void_p], ctypes.c_int)
            for sfx in DTYPE_SUFFIX.values()},
         "greedy_update_num_blocks": ([ctypes.c_longlong], ctypes.c_longlong),
     }),
     "sm90": ("greedy_update_sm90", {
         **{f"greedy_update_sm90_{sfx}": (
-            [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2
+            [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2
             + [ctypes.c_void_p], ctypes.c_int)
            for sfx in DTYPE_SUFFIX.values()},
         "greedy_update_sm90_num_blocks": ([ctypes.c_longlong],
@@ -62,7 +68,7 @@ def kernel_route(dtype: torch.dtype, M: int, aligned: bool) -> str:
 
 
 def greedy_update(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
-                  norms_sq: torch.Tensor):
+                  norms_sq: torch.Tensor, active: torch.Tensor | None = None):
     """Fused pivot-search update: c = q^H S, acc + |c|^2, residual argmax.
 
     Same arguments and results as
@@ -70,21 +76,21 @@ def greedy_update(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
     argmax is the first index of the maximum on the card too.  ``acc`` is
     not modified (``acc_out`` is a new tensor).
     """
-    return _greedy_update(q, S, acc, norms_sq, general=False)
+    return _greedy_update(q, S, acc, norms_sq, active, general=False)
 
 
-def _greedy_update_general(q, S, acc, norms_sq):
+def _greedy_update_general(q, S, acc, norms_sq, active=None):
     """:func:`greedy_update` through the general kernel whatever
     :func:`kernel_route` says: the first design, timed beside the sm90
     kernel by ``chip_smoke.py`` and held to the plain version by the card
     tests at the shapes the sm90 kernel now takes."""
-    return _greedy_update(q, S, acc, norms_sq, general=True)
+    return _greedy_update(q, S, acc, norms_sq, active, general=True)
 
 
-def _greedy_update(q, S, acc, norms_sq, general):
+def _greedy_update(q, S, acc, norms_sq, active, general):
     global launches, launches_sm90, launches_general
     if S.device.type == "cpu":
-        return greedy_update_ref(q, S, acc, norms_sq)
+        return greedy_update_ref(q, S, acc, norms_sq, active)
     if S.device.type != "cuda":
         raise ValueError(f"greedy_update: no kernel for device {S.device}")
     sfx = kernel_dtype("greedy_update", S.dtype)
@@ -98,6 +104,7 @@ def _greedy_update(q, S, acc, norms_sq, general):
     check_tensor("greedy_update", "q", q, S.dtype, (N,), dev)
     check_tensor("greedy_update", "acc", acc, rdt, (M,), dev)
     check_tensor("greedy_update", "norms_sq", norms_sq, rdt, (M,), dev)
+    flag = flag_ptr("greedy_update", active, dev)
     route = "general" if general else kernel_route(
         S.dtype, M, base_aligned16(S, q))
     lib_name, signatures = _LIBS[route]
@@ -111,8 +118,8 @@ def _greedy_update(q, S, acc, norms_sq, general):
     max_res = torch.empty((), dtype=rdt, device=dev)
     argmax = torch.empty((), dtype=torch.int64, device=dev)
     stream = stream_ptr(dev)
-    args = [ptr(q), ptr(S), ptr(acc), ptr(norms_sq), ptr(c), ptr(acc_out),
-            ptr(bmax), ptr(bidx)]
+    args = [ptr(q), ptr(S), ptr(acc), ptr(norms_sq), flag, ptr(c),
+            ptr(acc_out), ptr(bmax), ptr(bidx)]
     if route == "sm90":
         args.append(ptr(ticket_counters(dev, stream, 1)))
     err = getattr(lib, f"{entry}_{sfx}")(

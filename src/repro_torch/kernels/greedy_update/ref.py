@@ -6,7 +6,8 @@ import torch
 
 
 def greedy_update_ref(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
-                      norms_sq: torch.Tensor):
+                      norms_sq: torch.Tensor,
+                      active: torch.Tensor | None = None):
     """Reference semantics of one pivot-search update.
 
     Args:
@@ -14,6 +15,10 @@ def greedy_update_ref(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
       S:        (N, M) snapshot matrix.
       acc:      (M,) accumulated sum_j |c_j|^2 (real).
       norms_sq: (M,) reference norms (real).
+      active:   optional 0-d bool tensor; ``None`` means true.  Where it is
+                false the update is the one q = 0 gives: c = 0,
+                ``acc_out = acc``, and the max / first-index argmax of
+                ``norms_sq - acc``.
 
     Returns:
       c:        (M,) = q^H S (dtype of S).
@@ -23,5 +28,8 @@ def greedy_update_ref(q: torch.Tensor, S: torch.Tensor, acc: torch.Tensor,
     """
     c = q.conj() @ S
     acc_out = acc + c.abs() ** 2
+    if active is not None:
+        c = torch.where(active, c, torch.zeros_like(c))
+        acc_out = torch.where(active, acc_out, acc)
     res = norms_sq - acc_out
     return c, acc_out, res.max(), res.argmax()

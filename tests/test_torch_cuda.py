@@ -188,6 +188,145 @@ def test_imgs_project_kernel_matches_plain(cuda, dtype, shape):
     assert float((vo - vr).abs().max()) <= tol
 
 
+def _check_project_route(cuda, dtype, shape, general, seed=1, offset=0):
+    """One call on the route kernel_route gives (or, with ``general``, the
+    general kernel), with a zero column in Q (an empty slot) unless K = 1
+    and Q ``offset`` elements into its storage: one launch on that route,
+    c and v' within _tol of the plain version.  Returns the inputs."""
+    gen = torch.Generator().manual_seed(seed)
+    N, K = shape
+    buf = torch.empty((N * K + offset,), dtype=dtype, device=cuda)
+    Q = buf[offset:].view(N, K)
+    Q.copy_(torch.linalg.qr(_rand(gen, (N, K), dtype, cuda))[0])
+    if K > 1:
+        Q[:, K // 2] = 0
+    v = _rand(gen, (N,), dtype, cuda)
+    route = "general" if general else ip_ops.kernel_route(dtype, K)
+    fn = ip_ops._imgs_project_general if general else ip_ops.imgs_project
+    n0 = getattr(ip_ops, f"launches_{route}")
+    vo, c = fn(v, Q)
+    torch.cuda.synchronize()
+    assert getattr(ip_ops, f"launches_{route}") == n0 + 1, route
+    vr, cr = imgs_project_ref(v, Q)
+    tol = _tol(dtype, N) * float(torch.linalg.vector_norm(v))
+    assert float((c - cr).abs().max()) <= tol
+    assert float((vo - vr).abs().max()) <= tol
+    assert K == 1 or bool((c[K // 2] == 0).all())
+    return v, Q
+
+
+# (N, K): N within one CTA's 8 rows, ragged last slabs (N off a multiple of
+# the rows a CTA takes), K 1, 8 and 100 (the greedy path's max_k), odd K
+# whose slabs start off 16-byte boundaries, N = 10,000 (132 CTAs of 76
+# rows) and N = 40,001 (every SM, rows past what fits: two chunks a CTA)
+PROJECT_ROUTE_SHAPES = [(5, 3), (33, 17), (513, 37), (1000, 100), (2113, 1),
+                        (3001, 8), (10000, 100), (40001, 100), (20011, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", PROJECT_ROUTE_SHAPES)
+def test_imgs_project_routes_match_plain(cuda, dtype, shape, general):
+    _check_project_route(cuda, dtype, shape, general)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_imgs_project_unaligned_q(cuda, dtype):
+    """Q one element into its storage (4 or 8 bytes off 16 for the
+    single-precision and float64 types): the sm90 kernel copies the ragged
+    head and tail of each slab in 4-byte words."""
+    _check_project_route(cuda, dtype, (1111, 37), False, offset=1)
+
+
+@pytest.mark.cuda
+def test_imgs_project_wide_k_takes_general_route(cuda):
+    """A K whose slab of 8 rows does not fit in shared memory takes the
+    general kernel."""
+    assert ip_ops.kernel_route(torch.complex128, 2000) == "general"
+    _check_project_route(cuda, torch.complex128, (2100, 2000), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_imgs_project_is_deterministic(cuda, dtype):
+    """No floating-point atomics: every CTA folds the partials in one fixed
+    order, so two launches of each kernel give the same bits."""
+    v, Q = _check_project_route(cuda, dtype, (10000, 100), False, seed=7)
+    for fn in (ip_ops.imgs_project, ip_ops._imgs_project_general):
+        a, b = fn(v, Q), fn(v, Q)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_imgs_project_smem_matches_the_wrapper(cuda):
+    """The wrapper sizes its chunks by the kernel's own shared-memory sum."""
+    from repro_torch.kernels import _build
+    lib = _build.load(*ip_ops._LIBS["sm90"])
+    for K, T, itemsize in ((100, 76, 8), (1, 8, 4), (37, 272, 16)):
+        assert lib.imgs_project_sm90_smem(K, T, itemsize) == \
+            ip_ops.smem_bytes(K, T, itemsize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_false_flag_skips_project_and_sweep_reads(cuda, dtype, general):
+    """With a false flag each kernel returns exactly what a zero vector
+    gives, with Q and S full of NaN (so it never read them); a true flag is
+    bitwise the call without one.  The counters the kernels take are left
+    at 0 (the next launch is right)."""
+    off = torch.zeros((), dtype=torch.bool, device=cuda)
+    on = torch.ones((), dtype=torch.bool, device=cuda)
+    # imgs_project: (v, 0)
+    v, Q = _check_project_route(cuda, dtype, (10000, 100), general, seed=9)
+    fn = ip_ops._imgs_project_general if general else ip_ops.imgs_project
+    vo, c = fn(v, torch.full_like(Q, float("nan")), off)
+    assert torch.equal(vo, v) and torch.equal(c, torch.zeros_like(c))
+    assert all(torch.equal(x, y) for x, y in zip(fn(v, Q, on), fn(v, Q)))
+    _check_project_route(cuda, dtype, (10000, 100), general, seed=9)
+    # greedy_update: c = 0, acc_out = acc, argmax of norms - acc (a tie of
+    # the largest residual at columns 5 and 900: the first wins)
+    q, S, acc, norms = _check_greedy_route(cuda, dtype, (300, 1024),
+                                           general, seed=9)
+    acc[5] = acc[900] = 0.5
+    norms[5] = norms[900] = (norms - acc).max() + 1.5
+    fn = gu_ops._greedy_update_general if general else gu_ops.greedy_update
+    c, a, mx, am = fn(q, torch.full_like(S, float("nan")), acc, norms, off)
+    torch.cuda.synchronize()
+    assert torch.equal(c, torch.zeros_like(c)) and torch.equal(a, acc)
+    assert int(am) == 5 and float(mx) == float((norms - acc).max())
+    assert all(torch.equal(x, y) for x, y in
+               zip(fn(q, S, acc, norms, on), fn(q, S, acc, norms)))
+    _check_greedy_route(cuda, dtype, (300, 1024), general, seed=9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float64])
+def test_greedy_driver_latched_mid_chunk_on_card(cuda, dtype):
+    """A stop that latches inside the first chunk: the card's build (its
+    masked steps' kernels told so by the flag, every imgs_project launch on
+    the sm90 route) equals the CPU build's k, stop and pivots."""
+    from repro_torch.core.greedy import STOP_TAU, rb_greedy
+
+    x = np.linspace(0, 1, 150)
+    nu = np.linspace(0.5, 2.0, 90)
+    S = np.stack([np.sin(2 * np.pi * v * x) * np.exp(-v * x) for v in nu],
+                 axis=1)
+    if dtype.is_complex:
+        S = S * np.exp(1j * np.outer(x, nu))
+    S = torch.from_numpy(S).to(dtype)
+    tau = 1e-2 * float(torch.linalg.vector_norm(S, dim=0).max())
+    n0 = (ip_ops.launches, ip_ops.launches_sm90)
+    gpu = rb_greedy(S, tau, max_k=24, chunk=16, device=cuda)
+    cpu = rb_greedy(S, tau, max_k=24, chunk=16, device="cpu")
+    assert ip_ops.launches - n0[0] == ip_ops.launches_sm90 - n0[1] == 48
+    assert gpu.stop == cpu.stop == STOP_TAU and gpu.k == cpu.k < 15
+    assert torch.equal(gpu.pivots.cpu(), cpu.pivots)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_arguments(cuda):
     S = torch.zeros((8, 5), dtype=torch.complex64, device=cuda)

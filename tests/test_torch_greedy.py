@@ -253,3 +253,51 @@ def test_refresh_and_errors_match_jax(dtype):
     np.testing.assert_allclose(_np(state.norms_sq), want ** 2, rtol=tol,
                                atol=tol * want.max())
     assert float(state.acc.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stop_latched_mid_chunk_matches_stepwise_and_jax(dtype):
+    """A build whose stop latches inside its first chunk of 16 (the later
+    steps masked, their kernels told so by the active flag) gives the
+    stepwise oracle's build bit for bit, and the reference's pivots, k,
+    errs and stop code."""
+    S = make_smooth_matrix(n=150, m=90, dtype=dtype)
+    tau = _parity_tau(S)
+    port = tg.rb_greedy(S, tau, max_k=24, chunk=16, device="cpu")
+    assert port.stop == tg.STOP_TAU and port.k + 1 < 16  # latched mid-chunk
+    _assert_identical(port, tg.rb_greedy_stepwise(S, tau, max_k=24,
+                                                  device="cpu"))
+    ref = jg.rb_greedy(jnp.asarray(S), tau=tau, max_k=24, chunk=16,
+                       backend="xla")
+    _assert_parity(port, ref, dtype, S.shape[0])
+
+
+def test_masked_steps_hand_false_flags_to_the_kernels(monkeypatch):
+    """Every step of a chunk up to the latched stop hands its sweep and its
+    first GS pass a true flag; every later step a false one, and a re-run
+    pass the re-run test too.  So the sweeps that read S number the steps
+    up to the latch."""
+    from repro_torch.core import backend as be
+
+    sweeps, first, rerun = [], [], []
+    pivot_update, project_pass = be.pivot_update, be.project_pass
+
+    def spy_update(*args, active=None, **kw):
+        sweeps.append(bool(active))
+        return pivot_update(*args, active=active, **kw)
+
+    def spy_project(v, Q, backend=None, active=None):
+        (first if len(first) == len(sweeps) else rerun).append(bool(active))
+        return project_pass(v, Q, backend=backend, active=active)
+
+    monkeypatch.setattr(be, "pivot_update", spy_update)
+    monkeypatch.setattr(be, "project_pass", spy_project)
+    S = make_smooth_matrix(n=150, m=90, dtype=np.complex64)
+    res = tg.rb_greedy(S, _parity_tau(S), max_k=24, chunk=16, device="cpu")
+    live = res.k + 1  # the latched step's basis was dropped
+    assert sweeps == [True] * live + [False] * (16 - live)
+    assert first == sweeps
+    assert len(rerun) == 2 * 16 and not any(rerun[2 * live:])
+    # a re-run pass of an accepted step is live where its pass counted
+    assert sum(rerun[:2 * res.k]) == int(
+        res.n_ortho_passes[:res.k].sum()) - res.k

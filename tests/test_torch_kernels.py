@@ -381,3 +381,109 @@ def test_general_entries_take_plain_version_on_cpu(rng):
     for x, y in zip(pp_ops._imgs_panel_general(V, Q), imgs_panel_ref(V, Q)):
         assert torch.equal(x, y)
     assert (gu_ops.launches, pp_ops.launches) == counts
+
+
+# ------------------------------------------------------ the active flag ----
+DTYPES = [np.float32, np.complex64, np.float64, np.complex128]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_update_ref_flag(rng, dtype):
+    """A false flag gives what q = 0 gives (c = 0, acc_out = acc, the
+    first-index argmax of norms - acc), bit for bit; a true flag gives the
+    call without one, bit for bit."""
+    q, S, acc, norms = _torch(*_update_inputs(rng, (40, 50), dtype))
+    acc[3] = acc[7] = 0.5  # a tie of the largest residual: 3 wins
+    norms[3] = norms[7] = (norms - acc).max() + 1.5
+    off = greedy_update_ref(q, S, acc, norms, torch.tensor(False))
+    zero = greedy_update_ref(torch.zeros_like(q), S, acc, norms)
+    assert all(torch.equal(x, y) for x, y in zip(off, zero))
+    assert torch.equal(off[0], torch.zeros_like(off[0]))
+    assert torch.equal(off[1], acc) and int(off[3]) == 3
+    on = greedy_update_ref(q, S, acc, norms, torch.tensor(True))
+    assert all(torch.equal(x, y) for x, y in
+               zip(on, greedy_update_ref(q, S, acc, norms)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_imgs_project_ref_flag(rng, dtype):
+    """A false flag gives what Q = 0 gives, ``(v, 0)``, bit for bit, even
+    with Q full of NaN; a true flag gives the call without one."""
+    v, Q = _torch(*_project_inputs(rng, (40, 7), dtype))
+    vo, c = imgs_project_ref(v, Q, torch.tensor(False))
+    vz, cz = imgs_project_ref(v, torch.zeros_like(Q))
+    assert torch.equal(vo, vz) and torch.equal(c, cz)
+    assert torch.equal(vo, v) and torch.equal(c, torch.zeros_like(c))
+    vn, cn = imgs_project_ref(v, torch.full_like(Q, float("nan")),
+                              torch.tensor(False))
+    assert torch.equal(vn, v) and torch.equal(cn, torch.zeros_like(c))
+    on = imgs_project_ref(v, Q, torch.tensor(True))
+    assert all(torch.equal(x, y) for x, y in
+               zip(on, imgs_project_ref(v, Q)))
+
+
+def test_flag_passes_through_wrappers_and_backend(rng):
+    """On CPU tensors the wrappers and the backend's slots hand the flag to
+    the plain versions (both routes' entries), and launch nothing."""
+    counts = (gu_ops.launches, ip_ops.launches)
+    off = torch.tensor(False)
+    q, S, acc, norms = _torch(*_update_inputs(rng, (40, 50), np.complex64))
+    want = greedy_update_ref(q, S, acc, norms, off)
+    for got in (gu_ops.greedy_update(q, S, acc, norms, off),
+                gu_ops._greedy_update_general(q, S, acc, norms, off),
+                backend.pivot_update(q, S, acc, norms, active=off),
+                backend.pivot_update(q, S, acc, norms, backend="ref",
+                                     active=off)):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    v, Q = _torch(*_project_inputs(rng, (40, 7), np.complex64))
+    want = imgs_project_ref(v, Q, off)
+    for got in (ip_ops.imgs_project(v, Q, off),
+                ip_ops._imgs_project_general(v, Q, off),
+                backend.project_pass(v, Q, active=off),
+                backend.project_pass(v, Q, backend="ref", active=off)):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (gu_ops.launches, ip_ops.launches) == counts
+
+
+def test_imgs_project_general_takes_plain_version_on_cpu(rng):
+    """The general-route entry, on CPU tensors, is the plain version bit
+    for bit, and launches nothing."""
+    counts = (ip_ops.launches, ip_ops.launches_sm90,
+              ip_ops.launches_general)
+    v, Q = _torch(*_project_inputs(rng, (40, 7), np.complex128))
+    for x, y in zip(ip_ops._imgs_project_general(v, Q),
+                    imgs_project_ref(v, Q)):
+        assert torch.equal(x, y)
+    assert (ip_ops.launches, ip_ops.launches_sm90,
+            ip_ops.launches_general) == counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64, torch.complex128])
+@pytest.mark.parametrize("K", [1, 8, 100, 500, 1500, 4000])
+def test_imgs_project_kernel_route_rule(dtype, K):
+    """The sm90 kernel takes every K whose slab of 8 rows fits in its
+    shared memory; its plan never leaves that room, gives each SM one CTA
+    and leaves no CTA empty."""
+    itemsize = dtype.itemsize
+    fits = ip_ops.smem_bytes(K, 8, itemsize) <= ip_ops.SMEM_BUDGET
+    assert ip_ops.kernel_route(dtype, K) == ("sm90" if fits else "general")
+    T = ip_ops.fit_rows(K, itemsize)
+    assert ip_ops.smem_bytes(K, T, itemsize) <= ip_ops.SMEM_BUDGET
+    assert ip_ops.smem_bytes(K, T + 1, itemsize) > ip_ops.SMEM_BUDGET - 32
+    if fits:
+        for N in (1, 33, 10_000, 40_001):
+            rows, ctas, t = ip_ops.plan(N, K, itemsize, 132)
+            assert ctas <= 132 and (ctas - 1) * rows < N <= ctas * rows
+            assert 1 <= t <= min(rows, T)
+
+
+def test_imgs_project_plan_of_the_greedy_path():
+    """At the greedy path's (10000, 100) complex64: 132 CTAs of 76 rows on
+    132 SMs, each slab resident in one chunk (60.8 KB of Q)."""
+    assert ip_ops.kernel_route(torch.complex64, 100) == "sm90"
+    assert ip_ops.plan(10_000, 100, 8, 132) == (76, 132, 76)
+    assert ip_ops.smem_bytes(100, 76, 8) < 72 * 1024
+    # N past what 132 slabs hold: two chunks a CTA
+    rows, ctas, T = ip_ops.plan(40_001, 100, 8, 132)
+    assert ctas == 132 and T < rows <= 2 * T

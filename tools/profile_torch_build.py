@@ -9,7 +9,8 @@ M = 131,072, complex64), runs ``build_basis(strategy=...)`` (``greedy``, or
 untraced (cold, then warm) and once under ``torch.profiler``, and prints one
 JSON line with the kernels' build time, the first (cold) and second
 (warm) build times, the traced build's device busy share (union of kernel
-intervals over the build's wall time), kernel time by name, and the host
+intervals over the build's wall time), kernel time by name, the launches
+of each kernel that took 1 ms or more (a sweep that read S), and the host
 syncs seen (``cudaStreamSynchronize`` / memory copies).  The Chrome
 trace is kept at ``--trace PATH`` when given.
 """
@@ -36,8 +37,11 @@ def kernel_stats(trace_path: str, wall_us: float) -> dict:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     by_name = collections.Counter()
+    long_by_name = collections.Counter()
     for e in kernels:
         by_name[e["name"][:60]] += e["dur"]
+        if e["dur"] >= 1000:
+            long_by_name[e["name"][:60]] += 1
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     busy, end = 0.0, -1.0
     for lo, hi in spans:
@@ -51,6 +55,7 @@ def kernel_stats(trace_path: str, wall_us: float) -> dict:
     return {"kernels": len(kernels), "busy_us": busy,
             "busy_share": busy / wall_us,
             "top_kernels_us": dict(by_name.most_common(12)),
+            "launches_over_1ms": dict(long_by_name),
             "sync_calls": syncs}
 
 
