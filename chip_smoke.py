@@ -33,8 +33,25 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              per-column-error checks
   artifact   save/load bit-equality, EIM nodes
   roq        16 ROQ inner products against full quadrature
+  paper      the paper's oracles on complex128 cuts of the same grid (N
+             10,000, 2,048 columns at a stride of 64): POD's error
+             identities (Thm 3.2), the optimal RRQR (Thm 5.1), pivoted MGS
+             against RB-greedy on unnormalized snapshots (Prop. 5.3), the
+             reconstruction's bound (Thm 5.11), rb_greedy_scan against
+             rb_greedy; every greedy_update and imgs_project launch of the
+             scan and the reconstruction on the sm90 route; then MGS through
+             the front door on the full-width S (max_k 100): its wall beside
+             the greedy build's, its peak memory, its sampled error
+  roq_serve  the full-width greedy basis and the cut's greedy basis saved
+             as artifacts and served by launch.serve's basis mode (4,096
+             requests, max_batch 64, max_wait 2 ms), launches counted from 0
+             just before it: every answer resolved and bitwise its direct
+             evaluation, no death, breaker or rejection, the error within
+             the launcher's tolerance; roq_apply's time per bucket beside
+             torch.matmul's, and the widths at which torch.matmul's
+             columns change their bits (why the apply is a kernel)
   block_build  the full-width blocked build through the front door, with
-             the greedy basis freed first; launches counted from 0 just
+             the bases freed first; launches counted from 0 just
              before it, every imgs_panel and imgs_project launch on the
              sm90 route, the same checks, k within the staleness bound
 
@@ -84,6 +101,15 @@ N_MC, N_ETA = 512, 256            # chirp grid, N_MC * N_ETA == M
 F_MIN, F_MAX = 40.0, 1024.0       # Hz
 TAU = 1e-4
 BLOCK_P = 8                       # the blocked path's pivots per sweep
+# The paper phase's cut: every 64th column of the chirp grid (all 512
+# chirp masses, 4 mass ratios), in complex128.
+CUT_STRIDE = 64
+POD_REL_TAU = 1e-4                # POD / RRQR rank: sigma_{k+1} < 1e-4 sigma_1
+CUT_MAX_K = 500                   # slots of the Prop. 5.3 builds (they stop
+                                  # at tau well before)
+# The served cell: the launcher's basis mode over two artifacts.
+SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_WAIT_MS = 4096, 64, 2.0
+ROQ_MAX_ERR = 1e-4                # the reference launcher test's bound
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
@@ -291,6 +317,37 @@ def check_imgs_project(v, Q, general: bool = False) -> float:
           f"{Q.dtype}: {err} > {tol}")
     emit("kernels", kernel="imgs_project", route=route, dtype=str(Q.dtype),
          shape=list(Q.shape), max_abs_err=err, tol=tol)
+    return err
+
+
+def check_roq_apply(B, F) -> float:
+    """Kernel vs plain on one input: one launch a call, the same bits
+    twice, each column's bits those of the column alone in a width-2 call
+    (the serving contract); within the rounding of a k-term sum of
+    |B||F|.  Returns the max abs error."""
+    from repro_torch.kernels.roq_apply import ops as ra_ops
+    from repro_torch.kernels.roq_apply.ref import roq_apply_ref
+
+    n0 = ra_ops.launches
+    out = ra_ops.roq_apply(B, F)
+    again = ra_ops.roq_apply(B, F)
+    ref = roq_apply_ref(B, F)
+    torch.cuda.synchronize()
+    check(ra_ops.launches == n0 + 2, "roq_apply: the calls did not launch")
+    check(torch.equal(out, again), "roq_apply: two launches differ")
+    for j in sorted({0, F.shape[1] // 2, F.shape[1] - 1}):
+        pair = F[:, [j, j]].contiguous()
+        check(torch.equal(ra_ops.roq_apply(B, pair)[:, 0], out[:, j]),
+              f"roq_apply {tuple(B.shape)} {B.dtype}: column {j} depends "
+              "on the batch width")
+    k = B.shape[1]
+    scale = float((B.abs() @ F.abs()).max())
+    tol = sum_tol(B.dtype, k) * scale
+    err = float((out - ref).abs().max())
+    check(err <= tol, f"roq_apply {tuple(B.shape)} x {F.shape[1]} {B.dtype}: "
+          f"{err} > {tol}")
+    emit("kernels", kernel="roq_apply", dtype=str(B.dtype),
+         shape=[*B.shape, F.shape[1]], max_abs_err=err, tol=tol)
     return err
 
 
@@ -504,6 +561,11 @@ def kernel_phase(S, dev) -> dict:
             V = rand(gen, (n, p), dtype, dev)
             for general in (False, True):
                 check_imgs_panel(V, Q.contiguous(), general)
+        # a ragged last row group, k 1, widths 1 to 128
+        for n, k, nb in ((17, 3, 1), (301, 1, 5), (1000, 83, 64),
+                         (129, 100, 128)):
+            check_roq_apply(rand(gen, (n, k), dtype, dev),
+                            rand(gen, (k, nb), dtype, dev))
 
     out = time_greedy_update(S, gen, dev)
     # the f32 case of greedy_update (greedy_update_real on the TPU) at the
@@ -856,6 +918,293 @@ def serve_phase(dev, reset_counts, read_counts) -> dict:
     return launches
 
 
+# ------------------------------------------------------- paper oracles ----
+def paper_phase(S, f, m1, m2, dev, cols, greedy_wall, smi, reset_counts,
+                read_counts):
+    """The paper's oracles on complex128 cuts of the smoke's grid, then MGS
+    at full width.  Returns the cut's greedy basis (served next) and the
+    launches of the scan and the reconstruction."""
+    from repro_torch.api import build_basis
+    from repro_torch.core.errors import per_column_errors, proj_error_2norm
+    from repro_torch.core.greedy import rb_greedy, rb_greedy_scan
+    from repro_torch.core.pod import (
+        first_below, pod, pod_error_2norm, pod_error_fro,
+    )
+    from repro_torch.core.reconstruction import reconstruction
+    from repro_torch.core.rrqr import optimal_rrqr, rrqr_error_2norm
+    from repro_torch.gw import build_snapshot_matrix
+    from repro_torch.gw.waveform import taylorf2_batch
+
+    t_phase = time.perf_counter()
+    m1c, m2c = m1[::CUT_STRIDE], m2[::CUT_STRIDE]
+    S1 = build_snapshot_matrix(f, m1c, m2c, dtype=torch.complex128,
+                               device=dev)
+    S2 = taylorf2_batch(torch.as_tensor(f, device=dev), torch.as_tensor(m1c),
+                        torch.as_tensor(m2c), normalize=False,
+                        dtype=torch.complex128)
+    Mc = S1.shape[1]
+    cut = {"N": N, "M": Mc, "stride": CUT_STRIDE, "dtype": "complex128"}
+
+    # Thm 3.2: POD's error is sigma_{k+1} in the 2-norm and the tail's
+    # root sum of squares in Frobenius
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sig = pod(S1, 0.0, device=dev).sigmas
+    k = first_below(sig, POD_REL_TAU * float(sig[0]))
+    e2 = float(pod_error_2norm(S1, k, device=dev))
+    ef = float(pod_error_fro(S1, k, device=dev))
+    torch.cuda.synchronize()
+    pod_s = time.perf_counter() - t0
+    tail = float(torch.sqrt((sig[k:] ** 2).sum()))
+    check(0 < k < Mc, f"paper: POD rank {k} of {Mc}")
+    check(abs(e2 - float(sig[k])) <= 1e-10 * float(sig[k]),
+          f"paper Thm 3.2 (2-norm): {e2} vs sigma_k+1 {float(sig[k])}")
+    check(abs(ef - tail) <= 1e-10 * tail,
+          f"paper Thm 3.2 (Frobenius): {ef} vs {tail}")
+
+    # Thm 5.1: the optimal RRQR reaches sigma_{k+1} exactly
+    t0 = time.perf_counter()
+    rr = optimal_rrqr(S1, k, device=dev)
+    er = float(rrqr_error_2norm(S1, rr.Qk))
+    eye = torch.eye(k, dtype=rr.Qk.dtype, device=dev)
+    orth = float((rr.Qk.mH @ rr.Qk - eye).abs().max())
+    torch.cuda.synchronize()
+    rrqr_s = time.perf_counter() - t0
+    check(abs(er - float(sig[k])) <= 1e-10 * float(sig[k]),
+          f"paper Thm 5.1: {er} vs sigma_k+1 {float(sig[k])}")
+    # elementwise within 1e-10, as tests/test_rrqr.py holds it
+    check(orth <= 1e-10, f"paper Thm 5.1: Qk not orthonormal ({orth})")
+    del rr
+
+    # Prop 5.3 on unnormalized snapshots, tau 1e-5 of the largest column
+    # norm (the reference test's rule); then the scan and the
+    # reconstruction, every launch of theirs on the sm90 route
+    tau = 1e-5 * float(torch.linalg.vector_norm(S2, dim=0).max())
+    t0 = time.perf_counter()
+    g = build_basis(source=S2, strategy="greedy", tau=tau,
+                    max_k=CUT_MAX_K, device=dev)
+    mg = build_basis(source=S2, strategy="mgs", tau=tau, max_k=CUT_MAX_K,
+                     device=dev)
+    torch.cuda.synchronize()
+    prop_s = time.perf_counter() - t0
+    check(g.provenance["stop"] == "STOP_TAU",
+          f"paper Prop 5.3: the greedy build stopped by {g.provenance}")
+    # the same k, unless the next error lies within its rounding of tau:
+    # greedy's comes from |s|^2 - sum |c|^2, off by ~eps |s|^2 / err^2
+    # relative (~2e-6 at err = 1e-5 |s|), MGS's from a deflated column, so
+    # the two stop decisions may part there by one basis
+    kk = min(mg.k, g.k)
+    longer = g if g.k > mg.k else mg
+    tie = mg.k != g.k
+    check(kk >= 5 and abs(mg.k - g.k) <= 1 and (
+        not tie or abs(float(longer.errs[kk]) - tau) <= 1e-5 * tau),
+        f"paper Prop 5.3: k {mg.k} vs {g.k} (tau {tau}, next errs "
+        f"{longer.errs[kk:]})")
+    check(np.array_equal(mg.pivots[:kk], g.pivots[:kk]),
+          "paper Prop 5.3: MGS and greedy pivots differ")
+    # errs within 1e-6 relative, plus the rounding of greedy's Eq.-(6.3)
+    # err = sqrt(|s|^2 - sum |c|^2): ~eps |s|^2 / err in absolute terms
+    scale = tau / 1e-5
+    diff = np.abs(mg.errs[:kk] - g.errs[:kk])
+    errs_tol = 1e-6 * g.errs[:kk] + 10 * np.finfo(np.float64).eps \
+        * scale ** 2 / g.errs[:kk]
+    errs_rel = float(np.max(diff / g.errs[:kk]))
+    errs_worst = float(np.max(diff / errs_tol))
+    check(errs_worst <= 1.0, f"paper Prop 5.3: errs differ by {errs_rel} "
+          f"relative, {errs_worst} x the tolerance")
+    # sin of the largest principal angle, |(I - Q_g Q_g^H) Q_mgs|_2: stable
+    # where sqrt(1 - s_min^2) turns MGS's 1e-10 loss of orthogonality
+    # into 1e-5
+    span = float(torch.linalg.matrix_norm(
+        mg.Q[:, :kk] - g.Q[:, :kk] @ (g.Q[:, :kk].mH @ mg.Q[:, :kk]),
+        ord=2))
+    check(span < 1e-5, f"paper Prop 5.3: span distance {span}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    scan = rb_greedy_scan(S2, tau, g.k + 4, device=dev)
+    k_scan = int(scan.k)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    check(k_scan == g.k and np.array_equal(
+        scan.pivots[:g.k].cpu().numpy(), g.pivots),
+        f"paper rb_greedy_scan: k {k_scan} vs {g.k} or pivots differ")
+    check(bool((scan.pivots[g.k:] == -1).any()),
+          "paper rb_greedy_scan: no masked step wrote pivot -1")
+    del scan
+    # Thm 5.11 on the normalized cut: the partial QR to tau1, its R
+    tau1, tau2 = 1e-6, 1e-5
+    t0 = time.perf_counter()
+    rec = reconstruction(S1, tau1, tau2, max_j=MAX_K, device=dev)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    gq = rb_greedy(S1, tau1, max_k=MAX_K, device=dev)
+    launches = read_counts()
+    check(gq.k == rec.j and torch.equal(gq.Q[:, :rec.j], rec.Qj),
+          "paper Thm 5.11: the partial QR is not rb_greedy's")
+    for n in ("greedy_update", "imgs_project"):
+        check(launches[n] > 0 and launches[n + "_sm90"] == launches[n]
+              and launches[n + "_general"] == 0,
+              f"paper: a launch of {n} left the sm90 route: {launches}")
+    # S1 = Q_j R(1:j, :); its singular values are R's (Q_j orthonormal),
+    # which the reconstruction has taken: sigmas_R
+    S1_qr = rec.Qj @ gq.R[:rec.j]
+    sig1 = rec.sigmas_R
+    r22 = float(torch.linalg.matrix_norm(S1 - S1_qr, ord=2))
+    bound_511 = []
+    for jj in (3, 5):
+        lhs = float(proj_error_2norm(S1, rec.X[:, :jj]))
+        rhs = float(sig1[jj]) + r22
+        check(lhs <= rhs * (1 + 1e-8) + 1e-12,
+              f"paper Thm 5.11 at j={jj}: {lhs} > {rhs}")
+        bound_511.append({"j": jj, "lhs": lhs, "rhs": rhs})
+    del S1_qr, gq
+    emit("paper", cut=cut, card=smi,
+         pod={"k": k, "sigma_1": float(sig[0]), "sigma_k1": float(sig[k]),
+              "err_2norm": e2, "err_fro": ef, "fro_tail": tail,
+              "rel_tol": 1e-10, "seconds": pod_s},
+         rrqr={"k": k, "err_2norm": er, "orthogonality": orth,
+               "seconds": rrqr_s},
+         prop_5_3={"tau": tau, "k": g.k, "k_mgs": mg.k,
+                   "stop": g.provenance["stop"], "tie_at_tau": tie,
+                   "next_err_over_tau": (float(longer.errs[kk]) / tau
+                                         if tie else None),
+                   "pivots_equal": True,
+                   "errs_max_rel_diff": errs_rel,
+                   "errs_diff_over_tol": errs_worst, "span_distance": span,
+                   "seconds": prop_s},
+         scan={"k": k_scan, "max_k": g.k + 4, "seconds": scan_s},
+         reconstruction={"tau1": tau1, "tau2": tau2, "j": rec.j,
+                         "k": rec.k, "r22_2norm": r22,
+                         "thm_5_11": bound_511, "seconds": rec_s},
+         launches={n: launches[n] for n in (
+             "greedy_update", "greedy_update_sm90", "imgs_project",
+             "imgs_project_sm90")})
+    del S1, rec, mg
+
+    # MGS through the front door on the full-width S: one working copy of
+    # S (Remark 5.4), ~6kNM against greedy's 2kNM
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m = build_basis(source=S, strategy="mgs", tau=TAU, max_k=MAX_K,
+                    device=dev)
+    torch.cuda.synchronize()
+    mgs_wall = time.perf_counter() - t0
+    extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(5 <= m.k <= MAX_K and np.all(np.isfinite(m.errs)),
+          f"paper MGS: bad rank {m.k}")
+    # one working copy of S, plus Q, R and the chunked norms' temporaries
+    # (two 8192-column slices of |V|^2: ~0.66 GB here)
+    check(extra_gb <= 1.15 * S.nbytes / 1e9,
+          f"paper MGS: {extra_gb} GB above S, more than one working copy")
+    pce = float(per_column_errors(S.index_select(1, cols), m.Q).max())
+    check(math.isfinite(pce), "paper MGS: sampled errors not finite")
+    emit("paper", check="mgs_full_width", card=smi, shape=[N, M],
+         dtype="complex64", tau=TAU, k=m.k, wall_s=mgs_wall,
+         greedy_wall_s=greedy_wall, wall_ratio=mgs_wall / greedy_wall,
+         s_per_basis=mgs_wall / m.k, peak_extra_gb=extra_gb,
+         s_gb=S.nbytes / 1e9, peak_extra_over_s=extra_gb * 1e9 / S.nbytes, max_sampled_col_err=pce,
+         last_r_diag=float(m.errs[-1]),
+         phase_s=time.perf_counter() - t_phase)
+    del m
+    torch.cuda.empty_cache()
+    return g, launches
+
+
+def roq_serve_phase(basis, cut_basis, dev, smi, reset_counts, read_counts):
+    """Both bases saved as artifacts and served by the launcher's basis
+    mode; roq_apply's time per bucket beside torch.matmul's.  Returns the
+    launches of the serving run and the timing entry of roq_apply."""
+    from repro_torch.kernels.roq_apply import ops as ra_ops
+    from repro_torch.kernels.roq_apply.ref import roq_apply_ref
+    from repro_torch.launch.serve import main as serve_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d1, d2 = os.path.join(tmp, "gw_full"), os.path.join(tmp, "gw_cut")
+        basis.save(d1)
+        cut_basis.save(d2)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = serve_main(["--basis", d1, "--basis", d2,
+                            "--max-batch", str(SERVE_MAX_BATCH),
+                            "--max-wait-ms", str(SERVE_WAIT_MS),
+                            "--requests", str(SERVE_REQUESTS),
+                            "--device", str(dev)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+    c = stats["counters"]
+    check(launches["roq_apply"] > 0,
+          f"roq_serve: roq_apply was not launched: {launches}")
+    check(stats["served"] == c["completed"] == SERVE_REQUESTS,
+          f"roq_serve: {stats['served']} served, {c['completed']} "
+          f"completed of {SERVE_REQUESTS}")
+    check(c["worker_deaths"] == c["breaker_opened"] == c["rejected"]
+          == c["shed"] == c["quota_rejected"] == c["errors"]
+          == c["timeouts"] == 0, f"roq_serve: counters {c}")
+    check(stats["direct_mismatches"] == 0,
+          f"roq_serve: {stats['direct_mismatches']} answers differ from "
+          "their direct evaluation")
+    check(stats["max_err"] <= ROQ_MAX_ERR,
+          f"roq_serve: max error {stats['max_err']} > {ROQ_MAX_ERR}")
+
+    # roq_apply per bucket on the full-width basis, beside torch.matmul;
+    # the entry of the kernels line at the largest bucket
+    B = basis.eim().B.contiguous()
+    gen = torch.Generator().manual_seed(SEED)
+    per_bucket = []
+    entry = None
+    b = 2
+    while b <= SERVE_MAX_BATCH:
+        F = rand(gen, (basis.k, b), B.dtype, B.device)
+        err = check_roq_apply(B, F)
+        # bytes: B and F read once, out written once
+        nbytes = B.nbytes + F.nbytes + B.shape[0] * b * B.element_size()
+        bms, bby = bound(nbytes, macs_flops(B.dtype) * B.shape[0]
+                         * basis.k * b)
+        row = {"bucket": b, "ms": time_ms(lambda: ra_ops.roq_apply(B, F), 50),
+               "matmul_ms": time_ms(lambda: torch.matmul(B, F), 50),
+               "bound_ms": bms, "bound_by": bby}
+        per_bucket.append(row)
+        if b == SERVE_MAX_BATCH:
+            entry = {"ms": row["ms"], "library_ms": row["matmul_ms"],
+                     "plain_ms": time_ms(lambda: roq_apply_ref(B, F), 50),
+                     "bound_ms": bms, "bound_by": bby, "max_abs_err": err}
+        b *= 2
+    # why the apply is a kernel: the widths 2..128 at which torch.matmul's
+    # (cuBLAS's) columns lose the bits they have at width 128
+    matmul_widths = {}
+    for dtype in (torch.float32, torch.complex64, torch.float64,
+                  torch.complex128):
+        for n, k in ((N, basis.k), (120, 8)):
+            Bt = rand(gen, (n, k), dtype, B.device)
+            Ft = rand(gen, (k, 128), dtype, B.device)
+            full = torch.matmul(Bt, Ft)
+            matmul_widths[f"{dtype}-{n}x{k}"] = [
+                w for w in range(2, 129) if not torch.equal(
+                    torch.matmul(Bt, Ft[:, :w].contiguous()), full[:, :w])]
+    lat = stats["latency_ms"]
+    emit("roq_serve", card=smi, bases=[
+             {"k": basis.k, "N": basis.N, "dtype": str(basis.Q.dtype)},
+             {"k": cut_basis.k, "N": cut_basis.N,
+              "dtype": str(cut_basis.Q.dtype)}],
+         requests=SERVE_REQUESTS, max_batch=SERVE_MAX_BATCH,
+         max_wait_ms=SERVE_WAIT_MS, wall_s=stats["wall_s"], run_s=run_s,
+         req_s=stats["served"] / stats["wall_s"],
+         latency_ms=lat, batches=c["batches"],
+         occupancy=stats["batch_occupancy_mean"],
+         cache_hit_rate=stats["cache_hit_rate"],
+         max_err=stats["max_err"], max_err_bound=ROQ_MAX_ERR,
+         direct_mismatches=stats["direct_mismatches"],
+         apply_route="roq_apply", apply_per_bucket=per_bucket,
+         matmul_width_dependent_widths=matmul_widths,
+         launches={"roq_apply": launches["roq_apply"]})
+    return launches, entry
+
+
 # ---------------------------------------------------------------- main ----
 def main() -> None:
     if not torch.cuda.is_available():
@@ -872,10 +1221,11 @@ def main() -> None:
     from repro_torch.kernels.greedy_update import ops as gu_ops
     from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_project import ops as ip_ops
+    from repro_torch.kernels.roq_apply import ops as ra_ops
 
     counters = {"greedy_update": gu_ops, "imgs_project": ip_ops,
                 "block_sweep": bs_ops, "imgs_panel": pp_ops,
-                "flash_attention": fa_ops}
+                "flash_attention": fa_ops, "roq_apply": ra_ops}
 
     # the wrappers that route between two kernels count each route apart
     routed = ("greedy_update", "imgs_project", "imgs_panel",
@@ -927,6 +1277,7 @@ def main() -> None:
 
     cols = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :8192].to(dev)
+    walls = {}
 
     def drive(phase, sweeps_with, flagged, path_kernels, sm90_only,
               **spec):
@@ -944,6 +1295,7 @@ def main() -> None:
         b = build_basis(source=S, tau=TAU, max_k=MAX_K, chunk=16, **spec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        walls[phase] = wall
         launches = read_counts()
         k = b.k
         check(all(launches[n] > 0 for n in path_kernels),
@@ -1044,8 +1396,16 @@ def main() -> None:
          max_rel_err=float(np.max(rel)), rel_err_bound=1e-2,
          max_interp_err=float(i_err.max()), k=k)
 
-    # --- the blocked path: the greedy basis freed first
-    del basis, back, omega, interp
+    # --- the paper's oracles, then the served ROQ stage over two artifacts
+    del back, omega, interp
+    cut_basis, paper_launches = paper_phase(
+        S, f, m1, m2, dev, cols, walls["build_basis"], smi, reset_counts,
+        read_counts)
+    roq_launches, timings["roq_apply"] = roq_serve_phase(
+        basis, cut_basis, dev, smi, reset_counts, read_counts)
+
+    # --- the blocked path: the bases freed first
+    del basis, cut_basis
     torch.cuda.empty_cache()
     blk, blk_launches = drive("block_build", "block_sweep", False,
                               ("block_sweep", "imgs_panel", "imgs_project"),
@@ -1095,13 +1455,18 @@ def main() -> None:
             ("flash_attention_general",
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96",
-             serve_launches, "flash_attention_general")):
+             serve_launches, "flash_attention_general"),
+            ("roq_apply", "src/repro_torch/csrc/roq_apply.cu",
+             "src/repro/serving/roq.py:115-122 (XLA GEMMs, not a Pallas "
+             "kernel)", roq_launches, "roq_apply")):
         t = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path[key],
                         "counter": key,
                         "launches_by_path": {
                             "greedy": launches[key],
+                            "paper": paper_launches[key],
+                            "roq_serve": roq_launches[key],
                             "block_greedy": blk_launches[key],
                             "serve": serve_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],

@@ -3,7 +3,10 @@
 Port of :mod:`repro.api.build` for the resident strategies: ``greedy``
 runs :func:`repro_torch.core.greedy.rb_greedy` and ``block_greedy`` runs
 :func:`repro_torch.core.block_greedy._rb_greedy_block_impl`, so the
-artifact's arrays equal the driver's (trimmed) output.
+artifact's arrays equal the driver's (trimmed) output; the paper's
+oracles ``pod`` (:func:`repro_torch.core.pod.pod`) and ``mgs``
+(:func:`repro_torch.core.mgs._mgs_pivoted_qr_impl`) run through the same
+door.
 ``strategy="auto"`` resolves to ``"greedy"`` (the roofline model that picks
 the blocked path is not ported yet) and logs the choice on logger
 ``repro_torch.api``.
@@ -17,6 +20,7 @@ import os
 import shutil
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.api.artifact import ReducedBasis
@@ -24,6 +28,34 @@ from repro_torch.api.spec import ReductionSpec
 from repro_torch.device import resolve_device
 
 logger = logging.getLogger("repro_torch.api")
+
+_ENV_BUDGET = "REPRO_DEVICE_MEM_BUDGET"
+_FALLBACK_BUDGET = 4 << 30  # 4 GiB when nothing else is detectable
+
+
+def device_memory_budget(device=None) -> int:
+    """Device-memory budget (bytes) that the serving router plans against.
+
+    Precedence: ``REPRO_DEVICE_MEM_BUDGET`` > the card's total memory
+    (``torch.cuda.mem_get_info``; ``device`` None means the current card
+    if there is one) > half of the host's MemAvailable (a CPU device
+    shares host RAM) > 4 GiB.
+    """
+    env = os.environ.get(_ENV_BUDGET)
+    if env:
+        return int(float(env))
+    if device is None and torch.cuda.is_available():
+        device = "cuda"
+    if device is not None and torch.device(device).type == "cuda":
+        return int(torch.cuda.mem_get_info(resolve_device(device))[1])
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 // 2
+    except OSError:
+        pass
+    return _FALLBACK_BUDGET
 
 
 # Each builder returns (Q, pivots, errs, R, k, extras): the arrays trimmed
@@ -74,9 +106,29 @@ def _build_block_greedy(spec, S, ckpt_dir=None):
     return _trim_greedy(res, diag)
 
 
+def _build_mgs(spec, S, ckpt_dir=None):
+    from repro_torch.core.mgs import _mgs_pivoted_qr_impl
+
+    res = _mgs_pivoted_qr_impl(S, tau=spec.tau, max_k=spec.max_k,
+                               device=S.device)
+    return (res.Q, res.pivots.cpu().numpy(), res.r_diag.cpu().numpy(),
+            res.R.cpu().numpy(), res.k, {})
+
+
+def _build_pod(spec, S, ckpt_dir=None):
+    from repro_torch.core.pod import pod
+
+    res = pod(S, tau=spec.tau, device=S.device)
+    k = res.k if spec.max_k is None else min(res.k, spec.max_k)
+    return (res.basis[:, :k].contiguous(), np.zeros((0,), np.int32),
+            res.sigmas[:k].cpu().numpy(), None, k, {})
+
+
 _BUILDERS = {
     "greedy": _build_greedy,
     "block_greedy": _build_block_greedy,
+    "mgs": _build_mgs,
+    "pod": _build_pod,
 }
 
 
@@ -149,7 +201,8 @@ def build_basis(spec: ReductionSpec | None = None,
     provenance = {
         "strategy": strategy,
         "requested_strategy": spec.strategy,
-        "backend": resolve_backend(spec.backend),
+        "backend": (None if strategy in ("pod", "mgs")
+                    else resolve_backend(spec.backend)),
         "device": device.type,
         "dtype": str(S.dtype).removeprefix("torch."),
         "shape": [int(S.shape[0]), int(S.shape[1])],

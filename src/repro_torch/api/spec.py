@@ -1,8 +1,8 @@
 """`ReductionSpec`: one declarative description of a basis build.
 
 Port of :mod:`repro.api.spec`, limited to the fields the ported builders
-(``greedy``, ``block_greedy``) read, plus ``device``.  The other strategies
-of the reference (``pod``, ``mgs``, ``streamed``, ``randomized``,
+(``greedy``, ``block_greedy``, ``pod``, ``mgs``) read, plus ``device``.
+The other strategies of the reference (``streamed``, ``randomized``,
 ``sketch+greedy``, ``batched``, ``distributed``) are named in
 ``STRATEGIES``; asking for one of them raises ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports it.
@@ -21,8 +21,6 @@ STRATEGIES = (
 
 # Strategy -> the ROADMAP.md item that ports it.
 _NOT_PORTED = {
-    "pod": "queue 1 item 4 (paper oracles pod/mgs/rrqr)",
-    "mgs": "queue 1 item 4 (paper oracles pod/mgs/rrqr)",
     "streamed": "queue 1 item 1 (WaveformProvider and the streamed driver)",
     "randomized": "queue 1 item 5 (randomized sketch)",
     "sketch+greedy": "queue 1 item 5 (randomized sketch)",
@@ -39,10 +37,12 @@ class ReductionSpec:
       source: the snapshot matrix — anything
         :func:`repro_torch.data.providers.as_provider` accepts (a numpy
         array, a torch tensor, a ``.npy`` path or a provider).
-      strategy: ``"greedy"``, ``"block_greedy"``, or ``"auto"`` (which
-        resolves to ``"greedy"``).  The reference's other strategies
-        raise ``NotImplementedError``.
-      tau: greedy stopping tolerance (the paper's ``tau``).
+      strategy: ``"greedy"``, ``"block_greedy"``, ``"pod"`` (Algorithm
+        1, an SVD), ``"mgs"`` (Algorithm 2, pivoted MGS), or ``"auto"``
+        (which resolves to ``"greedy"``).  The reference's other
+        strategies raise ``NotImplementedError``.
+      tau: stopping tolerance (the paper's ``tau``; for ``pod`` the
+        smallest k with ``sigma_{k+1} < tau``).
       max_k: basis-size cap (default ``min(N, M)``).
       backend: hot-loop backend (:mod:`repro_torch.core.backend`):
         ``"auto" | "ref"`` or None (env/default).

@@ -28,6 +28,27 @@ import numpy as np
 import torch
 
 
+def _fault_once(kind: str) -> bool:
+    """True if the env-keyed fault ``kind`` should fire now.
+
+    ``REPRO_FAULT_ONCE=<path>`` arms at-most-once semantics across process
+    restarts: the first firing creates ``<path>.<kind>`` and later calls see
+    it and stay quiet — so a supervised relaunch is not re-injured by the
+    same fault.  Without the marker the fault fires every time.  The same
+    convention as :mod:`repro.checkpoint.io`; the serving engine's fault
+    hooks use it.
+    """
+    marker = os.environ.get("REPRO_FAULT_ONCE")
+    if not marker:
+        return True
+    marker = f"{marker}.{kind}"
+    if os.path.exists(marker):
+        return False
+    with open(marker, "w") as f:
+        f.write(kind)
+    return True
+
+
 def _gc_orphan_tmps(directory: str, min_age_s: float = 0.0) -> None:
     """Remove ``step_*.tmp`` dirs left behind by a crash mid-save.
 

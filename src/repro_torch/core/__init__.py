@@ -1,1 +1,43 @@
-"""Algorithm 3 (RB-greedy) and its primitives, ported to PyTorch."""
+"""Core model-reduction algorithms from the paper, ported to PyTorch.
+
+The recommended entry point is the front door, :mod:`repro_torch.api` —
+``build_basis(source=S, tau=...)`` dispatches to the right engine
+(``strategy="pod" | "mgs" | "greedy" | "block_greedy" | "auto"``) and
+returns one ``ReducedBasis`` artifact.
+
+- :mod:`repro_torch.core.pod`            -- Algorithm 1 (POD via SVD).
+- :mod:`repro_torch.core.mgs`            -- Algorithm 2 (MGS with column
+  pivoting; direct ``mgs_pivoted_qr`` calls are deprecated in favor of the
+  front door — the implementation stays as the Prop.-5.3 reference).
+- :mod:`repro_torch.core.greedy`         -- Algorithm 3 (RB-greedy with
+  Hoffmann IMGS; the chunked, stepwise and fixed-length drivers).
+- :mod:`repro_torch.core.block_greedy`   -- blocked variant (p pivots per
+  sweep).
+- :mod:`repro_torch.core.rrqr`           -- optimal RRQR (Theorem 5.1).
+- :mod:`repro_torch.core.reconstruction` -- Algorithm 4 (QR + SVD-of-R).
+- :mod:`repro_torch.core.eim`            -- empirical interpolation + ROQ.
+- :mod:`repro_torch.core.errors`         -- the paper's error identities.
+- :mod:`repro_torch.core.backend`        -- hot-loop primitive dispatch
+  (the hand-written CUDA kernels, or their plain versions on the CPU).
+"""
+
+from repro_torch.core.backend import resolve_backend
+from repro_torch.core.eim import eim_nodes, empirical_interpolant, roq_weights
+from repro_torch.core.greedy import (
+    GreedyResult,
+    imgs_orthogonalize,
+    rb_greedy,
+    rb_greedy_scan,
+    rb_greedy_stepwise,
+)
+from repro_torch.core.mgs import mgs_pivoted_qr
+from repro_torch.core.pod import pod, pod_basis
+from repro_torch.core.reconstruction import reconstruction
+from repro_torch.core.rrqr import optimal_rrqr
+
+__all__ = [
+    "pod", "pod_basis", "mgs_pivoted_qr", "GreedyResult", "rb_greedy",
+    "rb_greedy_stepwise", "rb_greedy_scan", "imgs_orthogonalize",
+    "optimal_rrqr", "reconstruction", "eim_nodes", "empirical_interpolant",
+    "roq_weights", "resolve_backend",
+]

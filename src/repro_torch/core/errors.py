@@ -44,6 +44,25 @@ def proj_error_2norm(S: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     return torch.linalg.matrix_norm(S - Q @ (Q.mH @ S), ord=2)
 
 
+def r22_norm(R: torch.Tensor, k: int, ord=2) -> torch.Tensor:
+    """|R22|_* for a full triangular factor R and split index k (Thm 4.1);
+    ``ord`` 2, or ``"fro"`` / None for the Frobenius norm."""
+    return torch.linalg.matrix_norm(R[k:, k:], ord="fro" if ord is None
+                                    else ord)
+
+
+def greedy_error_determinant_identity(sigmas: torch.Tensor,
+                                      r_diag: torch.Tensor,
+                                      k: int) -> torch.Tensor:
+    """Corollary 5.7 RHS: (prod_{i<=k+1} sigma_i) / (prod_{i<=k} R(i,i)).
+
+    Computed in log space for stability.
+    """
+    log_num = torch.log(sigmas[:k + 1]).sum()
+    log_den = torch.log(r_diag[:k]).sum()
+    return torch.exp(log_num - log_den)
+
+
 def orthogonality_defect(Q: torch.Tensor) -> torch.Tensor:
     """|I - Q^H Q|_2 — Hoffmann's conjecture: ~ kappa * eps * sqrt(M)."""
     k = Q.shape[1]

@@ -672,3 +672,60 @@ def rb_greedy_stepwise(
         k=int(state.k), n_ortho_passes=state.n_passes, rnorms=state.rnorms,
         stop=final_stop,
     )
+
+
+def rb_greedy_scan(
+    S,
+    tau: float,
+    max_k: int,
+    kappa: float = 2.0,
+    max_passes: int = 3,
+    backend: str | None = None,
+    device=None,
+) -> GreedyResult:
+    """Fixed-length variant: exactly ``max_k`` masked iterations, no host
+    sync.
+
+    Port of the reference's ``lax.scan`` driver.  An iteration whose
+    pre-add error is already below ``tau``, or whose pivot's
+    orthogonalization residual is rounding noise (the rank guard), is
+    masked: it writes a zero basis vector, a zero row of R and pivot -1 to
+    slot ``k`` (its error, pass count and residual norm too) and leaves
+    ``k``; its sweep gets a false ``active`` flag, so on the card it does
+    not read S.  No tau drop and no refresh: the result has
+    :func:`rb_greedy`'s pivots wherever neither of those acts.  ``k`` is a
+    0-d device tensor (reading it is the caller's sync).
+    """
+    from repro_torch.data.providers import materialize_source
+
+    S = materialize_source(S, device)
+    backend = _backend.resolve_backend(backend)
+    state = greedy_init(S, max_k)
+    rdt = state.norms_sq.dtype
+    guard = 50.0 * torch.finfo(rdt).eps * torch.sqrt(state.norms_sq.max())
+    tau_d = torch.tensor(tau, dtype=rdt, device=S.device)
+    for _ in range(max_k):
+        err_sq, j = torch.clamp(state.norms_sq - state.acc, min=0.0).max(
+            dim=0)
+        err = torch.sqrt(err_sq)
+        v = S.index_select(1, j.view(1)).squeeze(1)
+        q, _, rnorm, n_pass = imgs_orthogonalize(v, state.Q, kappa,
+                                                 max_passes, backend=backend)
+        active = (err >= tau_d) & (rnorm >= guard)
+        q = torch.where(active, q, torch.zeros_like(q))
+        c, acc, _, _ = _backend.pivot_update(q, S, state.acc, state.norms_sq,
+                                             backend=backend, active=active)
+        kk = state.k.view(1)
+        state.Q.index_copy_(1, kk, q.unsqueeze(1))
+        state.R.index_copy_(0, kk, c.unsqueeze(0))
+        state.acc.copy_(acc)
+        state.pivots.index_copy_(0, kk, torch.where(
+            active, j.to(torch.int32), -1).view(1))
+        state.errs.index_copy_(0, kk, err.view(1))
+        state.n_passes.index_copy_(0, kk, n_pass.view(1))
+        state.rnorms.index_copy_(0, kk, rnorm.to(rdt).view(1))
+        state = state._replace(k=state.k + active.to(state.k.dtype))
+    return GreedyResult(
+        Q=state.Q, R=state.R, pivots=state.pivots, errs=state.errs,
+        k=state.k, n_ortho_passes=state.n_passes, rnorms=state.rnorms,
+    )

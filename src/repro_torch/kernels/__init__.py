@@ -12,4 +12,6 @@ against) and ``ops.py`` (the wrapper: checks, launch, launch counter):
   (``csrc/imgs_panel.cu``).
 - ``flash_attention`` — causal / sliding-window GQA attention of the LM
   prefill (``csrc/flash_attention.cu``).
+- ``roq_apply``     — the ROQ serving interpolant apply ``B @ F``, each
+  column's bits independent of the batch width (``csrc/roq_apply.cu``).
 """

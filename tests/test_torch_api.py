@@ -79,8 +79,8 @@ def test_auto_strategy_is_greedy(caplog):
     assert "auto strategy -> 'greedy'" in caplog.text
 
 
-@pytest.mark.parametrize("strategy", ["pod", "randomized", "streamed",
-                                      "batched"])
+@pytest.mark.parametrize("strategy", ["distributed", "randomized",
+                                      "streamed", "batched"])
 def test_unported_strategy_names_roadmap(strategy):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)

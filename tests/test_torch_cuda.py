@@ -22,6 +22,8 @@ from repro_torch.kernels.imgs_panel import ops as pp_ops
 from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 from repro_torch.kernels.imgs_project import ops as ip_ops
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
+from repro_torch.kernels.roq_apply import ops as ra_ops
+from repro_torch.kernels.roq_apply.ref import roq_apply_ref
 
 DTYPES = [torch.float32, torch.complex64, torch.float64, torch.complex128]
 
@@ -694,3 +696,135 @@ def test_flash_attention_wrapper_rejects_bad_arguments(cuda):
         fa_ops.flash_attention(t, t, t)
     with pytest.raises(ValueError, match="dtype"):
         fa_ops.flash_attention(q, q.half(), q.half())
+
+
+# ------------------------------------------------------------ roq_apply --
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(10000, 83, 64), (120, 8, 33),
+                                   (81, 6, 1), (7, 1, 5)])
+def test_roq_apply_kernel_matches_plain(cuda, dtype, shape):
+    """``B @ F`` within _tol of the plain version (a k-term sum); one
+    launch a call; the same bits twice."""
+    gen = torch.Generator().manual_seed(7)
+    N, k, nb = shape
+    B = _rand(gen, (N, k), dtype, cuda)
+    F = _rand(gen, (k, nb), dtype, cuda)
+    n0 = ra_ops.launches
+    out = ra_ops.roq_apply(B, F)
+    again = ra_ops.roq_apply(B, F)
+    torch.cuda.synchronize()
+    assert ra_ops.launches == n0 + 2
+    assert torch.equal(out, again)
+    ref = roq_apply_ref(B, F)
+    scale = float(B.abs().max()) * float(F.abs().max()) * k
+    assert float((out - ref).abs().max()) <= _tol(dtype, k) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,k", [(10000, 83), (120, 8)])
+def test_roq_apply_bucket_contract(cuda, dtype, N, k):
+    """The serving contract on the card: a column's bits do not depend on
+    the batch width, for every width 1..128 (the buckets 2..128 and every
+    unpadded direct width), and the engine's padded cache evaluation is
+    bitwise the direct one."""
+    from repro_torch.core.eim import EIMResult
+    from repro_torch.serving import InterpolantCache, direct_interpolate
+
+    gen = torch.Generator().manual_seed(8)
+    B = _rand(gen, (N, k), dtype, cuda)
+    F = _rand(gen, (k, 128), dtype, cuda)
+    full = ra_ops.roq_apply(B, F)
+    for b in range(1, 129):
+        out = ra_ops.roq_apply(B, F[:, :b].contiguous())
+        assert torch.equal(out, full[:, :b]), b
+    eim = EIMResult(nodes=torch.arange(k, device=cuda), B=B)
+    cache = InterpolantCache()
+    for width in (1, 2, 3, 7, 31, 64, 100):
+        Fw = F[:, :width].contiguous()
+        got, _, _ = cache.evaluate("b", eim, Fw)
+        assert torch.equal(got, direct_interpolate(eim, Fw))
+        assert torch.equal(got, full[:, :width].cpu())
+
+
+@pytest.mark.cuda
+def test_roq_apply_wrapper_rejects_bad_arguments(cuda):
+    B = torch.zeros((8, 3), device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ra_ops.roq_apply(B, torch.zeros((3, 2), device=cuda,
+                                        dtype=torch.float64))
+    with pytest.raises(ValueError, match="shape"):
+        ra_ops.roq_apply(B, torch.zeros((4, 2), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ra_ops.roq_apply(B, torch.zeros((2, 3), device=cuda).mT)
+
+
+# --------------------------------------------- the paper's oracles ------
+def _low_rank(gen, n, m, r, dtype):
+    """A rank-r matrix plus 1e-9 noise on the CPU, made in double."""
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    S = _rand(gen, (n, r), wide, "cpu") @ _rand(gen, (r, m), wide, "cpu")
+    return (S + 1e-9 * _rand(gen, (n, m), wide, "cpu")).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_pod_and_rrqr_on_cuda_match_cpu(cuda, dtype):
+    """POD and the optimal RRQR on the card against the CPU port:
+    singular values, k, the projector onto the basis (cuSOLVER and LAPACK
+    may pick other phases), the errors of Thm 3.2 / 5.1."""
+    from repro_torch.core.pod import pod, pod_error_2norm, pod_error_fro
+    from repro_torch.core.rrqr import optimal_rrqr, rrqr_error_2norm
+
+    gen = torch.Generator().manual_seed(9)
+    S = _low_rank(gen, 300, 120, 9, dtype)
+    s0 = float(torch.linalg.matrix_norm(S, ord=2))
+    tau = 1e-3 * s0
+    a, b = pod(S, tau, device="cpu"), pod(S, tau, device=cuda)
+    assert a.k == b.k == 9
+    assert float((a.sigmas - b.sigmas.cpu()).abs().max()) <= 1e-12 * s0
+    Pa = a.basis[:, :9] @ a.basis[:, :9].mH
+    Pb = (b.basis[:, :9] @ b.basis[:, :9].mH).cpu()
+    assert float((Pa - Pb).abs().max()) <= 1e-10
+    for fn in (pod_error_2norm, pod_error_fro):
+        ea, eb = float(fn(S, 5, device="cpu")), float(fn(S, 5, device=cuda))
+        assert abs(ea - eb) <= 1e-12 * s0
+    ra, rb = optimal_rrqr(S, 5, device="cpu"), optimal_rrqr(S, 5, device=cuda)
+    ea = float(rrqr_error_2norm(S, ra.Qk))
+    eb = float(rrqr_error_2norm(S.to(cuda), rb.Qk))
+    assert abs(ea - eb) <= 1e-12 * s0
+    assert abs(eb - float(rb.sigmas[5])) <= 1e-10 * s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mgs_and_scan_on_cuda_match_cpu(cuda, dtype):
+    """Pivoted MGS and the fixed-length greedy driver on the card against
+    the CPU port: k and pivots exact (the scan's -1 included), errors
+    within _tol; the scan's sweeps and GS passes launch the kernels."""
+    from repro_torch.api import build_basis
+    from repro_torch.core.greedy import rb_greedy, rb_greedy_scan
+
+    gen = torch.Generator().manual_seed(10)
+    S = _low_rank(gen, 200, 90, 8, dtype)
+    scale = float(torch.linalg.vector_norm(S, dim=0).max())
+    tau = 1e-3 * scale
+    ma = build_basis(source=S, strategy="mgs", tau=tau, device="cpu")
+    mb = build_basis(source=S, strategy="mgs", tau=tau, device=cuda)
+    assert ma.k == mb.k == 8
+    np.testing.assert_array_equal(ma.pivots, mb.pivots)
+    tol = 100 * _tol(dtype, 200) * scale
+    assert np.abs(ma.errs - mb.errs).max() <= tol
+    sa = rb_greedy_scan(S, tau, 12, device="cpu")
+    n0 = (gu_ops.launches, ip_ops.launches)
+    sb = rb_greedy_scan(S, tau, 12, device=cuda)
+    torch.cuda.synchronize()
+    assert gu_ops.launches - n0[0] == 12
+    assert ip_ops.launches - n0[1] == 12 * 3
+    assert int(sa.k) == int(sb.k) == 8
+    assert torch.equal(sa.pivots, sb.pivots.cpu())
+    assert int(sb.pivots[8]) == -1
+    assert float((sa.errs - sb.errs.cpu()).abs()[:8].max()) <= tol
+    g = rb_greedy(S, tau, device=cuda)
+    assert torch.equal(g.pivots[:8], sb.pivots[:8])

@@ -1,0 +1,53 @@
+"""The port's examples run end to end on the CPU (``device="cpu"``), at
+the sizes of the JAX package's ``examples/quickstart.py`` and
+``examples/gw_roq.py``, and land where those do."""
+
+import ast
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_torch_quickstart_runs_on_cpu(capsys):
+    """1500 x 900 complex128 TaylorF2 snapshots, tau 1e-6: the greedy and
+    POD ranks, the reconstruction, the EIM and the artifact round trip."""
+    out = _load("torch_quickstart").main(device="cpu")
+    assert out["k"] >= 100 and abs(out["pod_k"] - out["k"]) <= 5
+    assert out["rec_j"] >= out["rec_k"] >= 100
+    assert out["max_oos_err"] < 1e-2
+    assert out["round_trip"] is True
+    assert "save/load round trip: bit-identical Q = True" in \
+        capsys.readouterr().out
+
+
+def test_torch_gw_roq_runs_on_cpu():
+    out = _load("torch_gw_roq").main(device="cpu")
+    assert out["k"] >= 100
+    assert out["median_rel_err"] < 1e-4 and out["max_rel_err"] < 1e-2
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_gw_roq"])
+def test_torch_examples_import_no_jax(name):
+    """The port's examples import neither JAX nor the JAX package, and
+    default to the card."""
+    src = (ROOT / "examples" / f"{name}.py").read_text()
+    for node in ast.walk(ast.parse(src)):
+        mods = []
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        for m in mods:
+            assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), m
+    assert 'ap.add_argument("--device", default="cuda")' in src

@@ -104,8 +104,20 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert "generated (2, 4) on cpu" in capsys.readouterr().out
 
 
-def test_launcher_basis_mode_is_not_ported(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--basis", "artifacts/x"])
-    assert e.value.code == 2
-    assert "queue 1 item 2" in capsys.readouterr().err
+def test_launcher_basis_mode_is_not_ported(tmp_path, capsys):
+    """Basis mode, which this launcher once refused, now serves end to end
+    on the CPU: a saved basis, 32 requests, every answer bitwise the
+    direct evaluation."""
+    from conftest import make_smooth_matrix
+
+    from repro_torch.api import build_basis
+
+    d = str(tmp_path / "basis")
+    build_basis(source=make_smooth_matrix(60, 30, np.float64), tau=1e-6,
+                max_k=6, device="cpu").save(d)
+    stats = serve.main(["--basis", d, "--max-batch", "8", "--requests",
+                        "32", "--device", "cpu"])
+    assert stats["served"] == stats["counters"]["completed"] == 32
+    assert stats["direct_mismatches"] == 0 and stats["max_err"] < 1e-8
+    assert "served 32 requests over 1 bases on cpu" in \
+        capsys.readouterr().out
