@@ -110,9 +110,18 @@ CUT_MAX_K = 500                   # slots of the Prop. 5.3 builds (they stop
 # The served cell: the launcher's basis mode over two artifacts.
 SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_WAIT_MS = 4096, 64, 2.0
 ROQ_MAX_ERR = 1e-4                # the reference launcher test's bound
+# The streamed cell: the paper's M (a 12,800 x 256 chirp grid, S = 262 GB
+# at complex64, never formed), 50 tiles of 65,536 columns; the parity
+# tilings at the resident M (the second leaves a ragged 8,192-column last
+# tile); the host provider's every 8th column of S, 4,096-column tiles.
+N_MC_PAPER = 12_800
+STREAM_TILE = 65_536
+PARITY_TILES = (16_384, 24_576)
+HOST_STRIDE, HOST_TILE = 8, 4_096
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
+FP64_FLOPS = 34e12                # H100 SXM, float64 outside tensor cores
 BF16_FLOPS = 989e12               # H100 SXM, bf16 / f16 tensor cores, dense
 # The serving cell: granite-3-8b at full width, 4 requests of 2048-token
 # prompts, 32 new tokens each (the KV cache holds prompt + new tokens).
@@ -433,10 +442,12 @@ def macs_flops(dtype: torch.dtype) -> int:
 def timed(name, shape, dtype, nbytes, flops, err, reps, kernel, plain,
           library, flops_per_s=FP32_FLOPS) -> dict:
     """Times of the kernel, its plain version and the library yardstick
-    (best of ``reps``), the bound; one kernels line."""
+    (best of ``reps``; ``library`` None where no one PyTorch call computes
+    the function), the bound; one kernels line."""
     b = bound(nbytes, flops, flops_per_s)
     entry = {"ms": time_ms(kernel, reps), "plain_ms": time_ms(plain, reps),
-             "library_ms": time_ms(library, reps), "bound_ms": b[0],
+             "library_ms": None if library is None
+             else time_ms(library, reps), "bound_ms": b[0],
              "bound_by": b[1], "max_abs_err": err}
     emit("kernels", kernel=name, timing_shape=shape, dtype=str(dtype),
          achieved_gb_s=nbytes / (entry["ms"] * 1e-3) / 1e9, **entry)
@@ -1205,6 +1216,299 @@ def roq_serve_phase(basis, cut_basis, dev, smi, reset_counts, read_counts):
     return launches, entry
 
 
+# ------------------------------------------------ the TaylorF2 generator ----
+def check_taylorf2(args, dtype, normalize, dev, lo=0, hi=None) -> float:
+    """Kernel vs plain on columns [lo, hi) of the grid ``args`` (f, m1s,
+    m2s): one launch; within 10 eps sqrt(N) of the largest column norm;
+    the tile's columns bitwise those of a wider tile and of
+    ``WaveformProvider.column``.  Returns the max abs error."""
+    from repro_torch.data import WaveformProvider
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
+    from repro_torch.kernels.taylorf2.ref import taylorf2_tile_ref
+
+    prov = WaveformProvider(*args, dtype=dtype, normalize=normalize,
+                            device=dev)
+    g = prov.grid
+    N, M = g.shape
+    hi = M if hi is None else hi
+    n0 = tf_ops.launches
+    t = g.tile(lo, hi)
+    torch.cuda.synchronize()
+    check(tf_ops.launches == n0 + 1, "taylorf2_tile: the call did not launch")
+    r = taylorf2_tile_ref(g.rows, g.cols[:, lo:hi].contiguous(), normalize,
+                          dtype)
+    tol = sum_tol(dtype, N) * float(torch.linalg.vector_norm(r, dim=0).max())
+    err = float((t - r).abs().max())
+    what = f"taylorf2_tile ({N}, [{lo}, {hi})) {dtype} normalize={normalize}"
+    check(err <= tol, f"{what}: {err} > {tol}")
+    a, b = max(lo - 5, 0), min(hi + 7, M)
+    check(torch.equal(g.tile(a, b)[:, lo - a:hi - a], t),
+          f"{what}: columns differ inside a wider tile")
+    for j in sorted({lo, (lo + hi) // 2, hi - 1}):
+        check(torch.equal(prov.column(j), t[:, j - lo]),
+              f"{what}: column {j} differs alone")
+    emit("kernels", kernel="taylorf2_tile", dtype=str(dtype),
+         normalize=normalize, shape=[N, hi - lo], first_column=lo,
+         max_abs_err=err, tol=tol, exact=bool(torch.equal(t, r)))
+    return err
+
+
+def taylorf2_phase(dev) -> dict:
+    """The generator's checks at the kernels phase's shapes, and its times
+    on a paper-path tile (10,000 x 65,536 complex64, normalized)."""
+    from repro_torch.gw import WaveformGrid, chirp_grid, frequency_grid
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
+    from repro_torch.kernels.taylorf2.ref import taylorf2_tile_ref
+
+    grid = (frequency_grid(F_MIN, F_MAX, N),
+            *chirp_grid(n_mc=N_MC, n_eta=N_ETA))
+    err = check_taylorf2(grid, torch.complex64, True, dev, 40_960, 45_056)
+    check_taylorf2(grid, torch.complex128, False, dev, 40_960, 45_056)
+    for n, n_mc, n_eta in ((17, 3, 1), (17, 1, 1)):
+        small = (frequency_grid(F_MIN, F_MAX, n),
+                 *chirp_grid(n_mc=n_mc, n_eta=n_eta))
+        for dtype in (torch.complex64, torch.complex128):
+            for normalize in (True, False):
+                check_taylorf2(small, dtype, normalize, dev)
+
+    w = STREAM_TILE
+    g = WaveformGrid(*grid, dtype=torch.complex64, device=dev)
+    buf = torch.empty((N, w), dtype=torch.complex64, device=dev)
+
+    def plain():
+        # the plain version in 4,096-column chunks (its float64
+        # temporaries of a whole tile would not fit beside S)
+        for lo in range(0, w, 4096):
+            buf[:, lo:lo + 4096] = taylorf2_tile_ref(
+                g.rows, g.cols[:, lo:lo + 4096], True, torch.complex64)
+
+    gu = WaveformGrid(*grid, dtype=torch.complex64, normalize=False,
+                      device=dev)
+    unnorm_ms = time_ms(lambda: gu.tile(0, w, out=buf), 10)
+    entry = timed("taylorf2_tile", [N, w], torch.complex64,
+                  buf.nbytes + g.rows.nbytes + g.cols[:, :w].nbytes,
+                  tf_ops.flops(N, w, True), err, 10,
+                  lambda: g.tile(0, w, out=buf), plain, None,
+                  flops_per_s=FP64_FLOPS)
+    emit("kernels", kernel="taylorf2_tile", timing_shape=[N, w],
+         normalize=False, ms=unnorm_ms,
+         bound_ms=bound(buf.nbytes, tf_ops.flops(N, w, False),
+                        FP64_FLOPS)[0])
+    del buf
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ------------------------------------------------------ the streamed cell ----
+def busy_share(prof, wall_s: float) -> float:
+    """Union of the card's kernel intervals in a profiler run over its
+    wall time."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel")
+    busy, end = 0.0, -1.0
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / (wall_s * 1e6)
+
+
+def streamed_phase(S, resident, f, m1, m2, dev) -> None:
+    """The streamed driver at the resident cell's M against the resident
+    greedy build ``resident`` of S: bitwise at two tilings, after a crash
+    and a resume, and the pivots over a pinned host copy of every 8th
+    column."""
+    from repro_torch.api import build_basis
+    from repro_torch.core.streaming import rb_greedy_streamed
+    from repro_torch.data import ArrayProvider, FaultPlan, FaultyProvider
+    from repro_torch.data import WaveformProvider
+
+    def same(b, what):
+        ok = (b.k == resident.k
+              and b.provenance["stop"] == resident.provenance["stop"]
+              and np.array_equal(b.pivots, resident.pivots)
+              and np.array_equal(b.errs, resident.errs)
+              and torch.equal(b.Q, resident.Q))
+        check(ok, f"streamed {what}: not bitwise the resident build (k "
+              f"{b.k} vs {resident.k}, stop {b.provenance['stop']} vs "
+              f"{resident.provenance['stop']})")
+
+    prov = WaveformProvider(f, m1, m2, dtype=torch.complex64, device=dev)
+    parity = {}
+    for tile_m in PARITY_TILES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = build_basis(source=prov, strategy="streamed", tau=TAU,
+                        max_k=MAX_K, tile_m=tile_m, device=dev)
+        torch.cuda.synchronize()
+        parity[tile_m] = time.perf_counter() - t0
+        same(b, f"tile_m {tile_m}")
+        check(np.array_equal(b.R, resident.R),
+              f"streamed tile_m {tile_m}: R differs from the resident R")
+    # crash mid-build, mid-sweep of the basis half-way (a hard fault on a
+    # tile read: the init reads every tile, then each basis a column and
+    # every tile), and resume from the checkpoints of every 2 tiles
+    n_tiles = -(-M // PARITY_TILES[0])
+    crash_at = n_tiles + (n_tiles + 1) * (resident.k // 2) + n_tiles // 2 + 1
+    with tempfile.TemporaryDirectory() as ck:
+        kw = dict(tau=TAU, max_k=MAX_K, tile_m=PARITY_TILES[0],
+                  keep_R=False, checkpoint_dir=ck, checkpoint_every_tiles=2)
+        try:
+            rb_greedy_streamed(FaultyProvider(
+                prov, FaultPlan(raise_at_tile=crash_at)), **kw)
+            check(False, "streamed resume: the injected fault did not fire")
+        except IOError as e:
+            check("injected hard I/O fault" in str(e), f"streamed: {e}")
+        r = rb_greedy_streamed(prov, resume=True, **kw)
+        k = r.k
+        check(k == resident.k and np.array_equal(
+            r.pivots[:k].numpy(), resident.pivots)
+            and np.array_equal(r.errs[:k].numpy(), resident.errs)
+            and torch.equal(r.Q[:, :k], resident.Q),
+            "streamed resume: not bitwise the uninterrupted build")
+    emit("streamed", check="resident_parity", M=M, tile_m=list(PARITY_TILES),
+         wall_s=[parity[t] for t in PARITY_TILES], k=resident.k,
+         stop=resident.provenance["stop"], bitwise=True,
+         resume_crash_at_tile_read=crash_at, resume_bitwise=True)
+
+    # a host matrix: every 8th column of S, pinned, streamed through the
+    # side stream, against the resident build of the same columns
+    Sd = S[:, ::HOST_STRIDE].contiguous()
+    host = Sd.cpu().pin_memory()
+    ref = build_basis(source=Sd, strategy="greedy", tau=TAU, max_k=MAX_K,
+                      chunk=16, device=dev)
+    del Sd
+    hprov = ArrayProvider(host, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        hb = build_basis(source=hprov, strategy="streamed", tau=TAU,
+                         max_k=MAX_K, tile_m=HOST_TILE, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(hb.k == ref.k and hb.provenance["stop"] == ref.provenance["stop"]
+          and np.array_equal(hb.pivots, ref.pivots),
+          f"streamed host provider: k {hb.k} / {hb.provenance['stop']} vs "
+          f"{ref.k} / {ref.provenance['stop']}, or the pivots differ")
+    emit("streamed", check="host_provider", shape=list(host.shape),
+         gbytes=host.nbytes / 1e9, tile_m=HOST_TILE, k=hb.k,
+         stop=hb.provenance["stop"], pivots_identical=True, wall_s=wall,
+         h2d_gb=hprov.bytes_to_device / 1e9,
+         h2d_gb_s=hprov.bytes_to_device / wall / 1e9,
+         busy_share=busy_share(prof, wall), traced=True)
+    del host, hprov, ref, hb, prof
+    torch.cuda.empty_cache()
+
+
+def paper_streamed(dev, f, smi, reset_counts, read_counts, tf_ms):
+    """The paper's M through the front door: stepwise, then block_p 8.
+    Returns each build's launches, by block_p.
+
+    The stepwise basis must be usable: its sampled error within 100 tau
+    (complex64's rank guard ends it short of tau).  The blocked build on
+    this grid is not held to that: its stale p = 8 picks are near
+    neighbours, rank-rejected holes use up its slots and it stops far from
+    tau, as the reference's blocked streamed driver does on a cut of the
+    grid (tests/test_torch_streaming.py::
+    test_blocked_stream_falls_short_on_a_dense_grid_as_the_reference);
+    its line records ``usable`` false."""
+    from repro_torch.api import ReductionSpec, build_basis
+    from repro_torch.core.errors import per_column_errors
+    from repro_torch.gw import WaveformGrid, chirp_grid
+
+    m1, m2 = chirp_grid(n_mc=N_MC_PAPER, n_eta=N_ETA)
+    Mp = m1.shape[0]
+    n_tiles = -(-Mp // STREAM_TILE)
+    gen = torch.Generator().manual_seed(SEED)
+    cols = torch.randperm(Mp, generator=gen)[:8192].numpy()
+    sample = WaveformGrid(f, m1[cols], m2[cols], device=dev).tile(
+        0, len(cols))
+    s_gb = N * Mp * 8 / 1e9
+    eps = torch.finfo(torch.float32).eps
+    out, k1 = {}, None
+    for p in (1, BLOCK_P):
+        spec = ReductionSpec.waveform(f, m1, m2, strategy="streamed",
+                                      tau=TAU, max_k=MAX_K,
+                                      tile_m=STREAM_TILE, block_p=p,
+                                      device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = build_basis(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        pv = b.provenance
+        k = b.k
+        phase = "streamed_paper" if p == 1 else "streamed_paper_blocked"
+        check(5 <= k <= MAX_K and np.all(np.isfinite(b.errs)),
+              f"{phase}: bad rank {k}")
+        Q64 = b.Q.to(torch.complex128)
+        defect = float(torch.linalg.matrix_norm(
+            Q64.mH @ Q64 - torch.eye(k, dtype=Q64.dtype, device=dev), ord=2))
+        defect_bound = 100 * 2.0 * eps * math.sqrt(k)
+        check(defect <= defect_bound,
+              f"{phase}: orthogonality {defect} > {defect_bound}")
+        pce = float(per_column_errors(sample, b.Q).max())
+        last = float(b.errs[-1])
+        check(pce <= 1.5 * last,
+              f"{phase}: sampled error {pce} > 1.5 * {last}")
+        usable = pce <= 100 * TAU
+        check(usable or p > 1,
+              f"{phase}: sampled error {pce} > 100 tau: not a usable basis")
+        # every tile generated once a pass: init, sweeps, refreshes
+        tiles_gen = n_tiles * pv["passes"] + pv["columns"]
+        check(pv["passes"] == 1 + pv["sweeps"] + pv["refreshes"]
+              and launches["taylorf2_tile"] == tiles_gen,
+              f"{phase}: {launches['taylorf2_tile']} generator launches, "
+              f"expected {n_tiles} x {pv['passes']} + {pv['columns']}")
+        if p == 1:
+            check(pv["sweeps"] == k and pv["columns"] == k + (
+                pv["stop"] == "STOP_RANK"),
+                f"{phase}: {pv['sweeps']} sweeps / {pv['columns']} columns "
+                f"for k {k} ({pv['stop']})")
+            sm90 = ("greedy_update", "imgs_project")
+            k1 = k
+        else:
+            check(k <= int(1.15 * k1) + BLOCK_P,
+                  f"{phase}: k {k} above 1.15 * {k1} + {BLOCK_P}")
+            sm90 = ("imgs_project", "imgs_panel")
+        check(all(launches[n] > 0 and launches[n + "_sm90"] == launches[n]
+                  for n in sm90),
+              f"{phase}: a launch of {sm90} left the sm90 route: {launches}")
+        mem_bound = N * (MAX_K + 3 * STREAM_TILE) * 8 + 32 * Mp + 2e9
+        check(peak <= mem_bound, f"{phase}: peak {peak} B > {mem_bound}")
+        # the generator's card time, estimated from its measured time on
+        # a tile of this width (the single pivot columns left out)
+        gen_ms = n_tiles * pv["passes"] * tf_ms if p == 1 else None
+        emit(phase, M=Mp, N=N, tile_m=STREAM_TILE, n_tiles=n_tiles,
+             block_p=p, k=k, stop=pv["stop"], tau=TAU, wall_s=wall,
+             s_per_basis=wall / k, sweeps=pv["sweeps"],
+             refreshes=pv["refreshes"], s_per_sweep=wall / pv["sweeps"],
+             swept_gb_s=pv["sweeps"] * s_gb / wall,
+             s_gbytes=s_gb, generator_ms_est=gen_ms,
+             generator_share_of_wall_est=(None if gen_ms is None
+                                          else gen_ms / 1e3 / wall),
+             launches=launches, orthogonality=defect,
+             orthogonality_bound=defect_bound, max_sampled_col_err=pce,
+             last_err=last, col_err_bound=1.5 * last,
+             usable_err_bound=100 * TAU, usable=usable, peak_mem_gb=peak / 1e9,
+             peak_mem_bound_gb=mem_bound / 1e9, nvidia_smi=smi)
+        out[p] = launches
+        del b
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1222,10 +1526,12 @@ def main() -> None:
     from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_project import ops as ip_ops
     from repro_torch.kernels.roq_apply import ops as ra_ops
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
 
     counters = {"greedy_update": gu_ops, "imgs_project": ip_ops,
                 "block_sweep": bs_ops, "imgs_panel": pp_ops,
-                "flash_attention": fa_ops, "roq_apply": ra_ops}
+                "flash_attention": fa_ops, "roq_apply": ra_ops,
+                "taylorf2_tile": tf_ops}
 
     # the wrappers that route between two kernels count each route apart
     routed = ("greedy_update", "imgs_project", "imgs_panel",
@@ -1259,10 +1565,12 @@ def main() -> None:
                 for ln in r.splitlines() if "registers" in ln
                 or "spill" in ln])
 
-    # --- snapshots: TaylorF2 over the chirp grid, generated on the card
+    # --- snapshots: TaylorF2 over the chirp grid, generated on the card by
+    # the taylorf2_tile kernel (the streamed cell's tiles have its bits)
     f = frequency_grid(F_MIN, F_MAX, N)
     m1, m2 = chirp_grid(n_mc=N_MC, n_eta=N_ETA)
     torch.cuda.synchronize()
+    n0 = tf_ops.launches
     t0 = time.perf_counter()
     S = build_snapshot_matrix(f, m1, m2, dtype=torch.complex64, device=dev)
     torch.cuda.synchronize()
@@ -1271,9 +1579,11 @@ def main() -> None:
           "snapshots not finite / wrong shape")
     check(float((norms - 1).abs().max()) <= 1e-4, "snapshots not unit-norm")
     emit("snapshots", seconds=time.perf_counter() - t0, shape=[N, M],
-         dtype="complex64", gbytes=S.nbytes / 1e9)
+         dtype="complex64", gbytes=S.nbytes / 1e9,
+         taylorf2_launches=tf_ops.launches - n0)
 
     timings = kernel_phase(S, dev)
+    timings["taylorf2_tile"] = taylorf2_phase(dev)
 
     cols = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :8192].to(dev)
@@ -1404,8 +1714,12 @@ def main() -> None:
     roq_launches, timings["roq_apply"] = roq_serve_phase(
         basis, cut_basis, dev, smi, reset_counts, read_counts)
 
-    # --- the blocked path: the bases freed first
-    del basis, cut_basis
+    # --- the blocked path: the bases freed first (the greedy basis kept on
+    # the host side, for the streamed builds' parity)
+    basis = ReducedBasis(Q=basis.Q, pivots=basis.pivots, errs=basis.errs,
+                         k=basis.k, R=basis.R,
+                         provenance={"stop": basis.provenance["stop"]})
+    del cut_basis
     torch.cuda.empty_cache()
     blk, blk_launches = drive("block_build", "block_sweep", False,
                               ("block_sweep", "imgs_panel", "imgs_project"),
@@ -1417,8 +1731,18 @@ def main() -> None:
           f"block_build: k {blk.k} outside [5, 1.15 * {k} + {BLOCK_P}]")
     check(blk.provenance["block_p"] == BLOCK_P,
           f"block_build: provenance block_p {blk.provenance['block_p']}")
-    del blk, S, cols
+    del blk
+
+    # --- the streamed driver: parity at this M, then the paper's M with S
+    # freed (its 262 GB are never formed: tiles are generated on the card)
+    streamed_phase(S, basis, f, m1, m2, dev)
+    del S, cols, basis
     torch.cuda.empty_cache()
+    paper_launches_by_p = paper_streamed(dev, f, smi, reset_counts,
+                                         read_counts,
+                                         timings["taylorf2_tile"]["ms"])
+    stream_launches = paper_launches_by_p[1]
+    stream_blk_launches = paper_launches_by_p[BLOCK_P]
 
     # --- the dense-LM serving path, with the GW S freed
     timings.update(lm_kernel_phase(dev))
@@ -1458,7 +1782,11 @@ def main() -> None:
              serve_launches, "flash_attention_general"),
             ("roq_apply", "src/repro_torch/csrc/roq_apply.cu",
              "src/repro/serving/roq.py:115-122 (XLA GEMMs, not a Pallas "
-             "kernel)", roq_launches, "roq_apply")):
+             "kernel)", roq_launches, "roq_apply"),
+            ("taylorf2_tile", "src/repro_torch/csrc/taylorf2.cu",
+             "src/repro/data/providers.py:193-199 (jax.jit of "
+             "taylorf2_batch, not a Pallas kernel)", stream_launches,
+             "taylorf2_tile")):
         t = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path[key],
@@ -1468,6 +1796,8 @@ def main() -> None:
                             "paper": paper_launches[key],
                             "roq_serve": roq_launches[key],
                             "block_greedy": blk_launches[key],
+                            "streamed": stream_launches[key],
+                            "streamed_blocked": stream_blk_launches[key],
                             "serve": serve_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

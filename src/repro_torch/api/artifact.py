@@ -106,6 +106,53 @@ class ReducedBasis:
         return roq_weights(self._on_device(data), self._on_device(quad_w),
                            self._eim.B)
 
+    def enrich(self, source, tau: Optional[float] = None,
+               max_k: Optional[int] = None, tile_m: int = 8192,
+               save: bool = True, **stream_kwargs) -> "ReducedBasis":
+        """Extend this basis with new snapshots; returns the grown basis.
+
+        Streams the columns of ``source`` (anything
+        :func:`repro_torch.data.providers.as_provider` accepts, with tiles
+        on Q's device) through the streamed greedy driver warm-started from
+        this basis's Q: the existing bases are kept verbatim (bit-identical
+        leading columns), and new ones are appended only where ``source``
+        has residual above ``tau`` (default: the original build's tau,
+        else 1e-6).  Pivot indices ``< self.k`` refer to the ORIGINAL
+        build's source; new pivots index ``source``.
+
+        When this basis is directory-backed (:attr:`directory`, set by
+        :meth:`save` / :meth:`load`) and ``save=True``, the enriched basis
+        is saved there as a NEW artifact step; the old one stays on disk
+        one step back.
+        """
+        from repro_torch.core.greedy import STOP_NAMES
+        from repro_torch.core.streaming import rb_greedy_streamed
+
+        if tau is None:
+            tau = float(self.provenance.get("tau", 1e-6))
+        warm = {"Q": self.Q, "pivots": np.asarray(self.pivots),
+                "errs": np.asarray(self.errs)}
+        stream_kwargs.setdefault("device", self.Q.device)
+        res = rb_greedy_streamed(source, tau=tau, max_k=max_k,
+                                 tile_m=tile_m, warm_start=warm,
+                                 **stream_kwargs)
+        k = int(res.k)
+        provenance = {
+            **self.provenance,
+            "enriched_from_k": int(self.k),
+            "enrich_tau": tau,
+            "stop": STOP_NAMES.get(int(res.stop), str(int(res.stop))),
+        }
+        basis = ReducedBasis(
+            Q=res.Q[:, :k].contiguous(),
+            pivots=res.pivots[:k].numpy(), errs=res.errs[:k].numpy(), k=k,
+            R=None if res.R is None else res.R[:k].numpy(),
+            provenance=provenance)
+        directory = self.directory
+        if save and directory is not None:
+            basis.save(directory)
+        return basis
+
     # ------------------------------------------------------ persistence ----
     def save(self, directory: str) -> str:
         """Persist to ``directory`` (atomic; one NEW step dir under it,

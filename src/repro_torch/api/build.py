@@ -1,10 +1,13 @@
 """`build_basis`: the front door of the port.
 
-Port of :mod:`repro.api.build` for the resident strategies: ``greedy``
-runs :func:`repro_torch.core.greedy.rb_greedy` and ``block_greedy`` runs
-:func:`repro_torch.core.block_greedy._rb_greedy_block_impl`, so the
-artifact's arrays equal the driver's (trimmed) output; the paper's
-oracles ``pod`` (:func:`repro_torch.core.pod.pod`) and ``mgs``
+Port of :mod:`repro.api.build` for the resident strategies and the
+streamed one: ``greedy`` runs :func:`repro_torch.core.greedy.rb_greedy`,
+``block_greedy`` :func:`repro_torch.core.block_greedy.
+_rb_greedy_block_impl` and ``streamed``
+:func:`repro_torch.core.streaming.rb_greedy_streamed` (over the source's
+provider, never materialized), so the artifact's arrays equal the driver's
+(trimmed) output; the paper's oracles ``pod``
+(:func:`repro_torch.core.pod.pod`) and ``mgs``
 (:func:`repro_torch.core.mgs._mgs_pivoted_qr_impl`) run through the same
 door.
 ``strategy="auto"`` resolves to ``"greedy"`` (the roofline model that picks
@@ -72,7 +75,7 @@ def _trim_greedy(res, extras=None):
     extras["stop"] = STOP_NAMES.get(int(res.stop), str(int(res.stop)))
     return (res.Q[:, :k].contiguous(),
             res.pivots[:k].cpu().numpy(), res.errs[:k].cpu().numpy(),
-            res.R[:k].cpu().numpy(), k, extras)
+            None if res.R is None else res.R[:k].cpu().numpy(), k, extras)
 
 
 def _build_greedy(spec, S, ckpt_dir=None):
@@ -106,6 +109,24 @@ def _build_block_greedy(spec, S, ckpt_dir=None):
     return _trim_greedy(res, diag)
 
 
+def _build_streamed(spec, prov, ckpt_dir=None):
+    from repro_torch.core.streaming import rb_greedy_streamed
+
+    # the provenance records the passes over S: tile passes (init, sweeps,
+    # refreshes) and single columns fetched
+    diag = {}
+    return _trim_greedy(rb_greedy_streamed(
+        prov, tau=spec.tau, max_k=spec.max_k, tile_m=spec.tile_m,
+        block_p=spec.block_p, kappa=spec.kappa,
+        max_passes=spec.max_passes, refresh=spec.refresh,
+        refresh_safety=spec.refresh_safety, backend=spec.backend,
+        panel_ortho=spec.panel_ortho, keep_R=spec.keep_R,
+        checkpoint_dir=ckpt_dir,
+        checkpoint_every_tiles=spec.checkpoint_every_tiles,
+        resume=spec.resume, callback=spec.callback, diagnostics=diag,
+    ), diag)
+
+
 def _build_mgs(spec, S, ckpt_dir=None):
     from repro_torch.core.mgs import _mgs_pivoted_qr_impl
 
@@ -127,6 +148,7 @@ def _build_pod(spec, S, ckpt_dir=None):
 _BUILDERS = {
     "greedy": _build_greedy,
     "block_greedy": _build_block_greedy,
+    "streamed": _build_streamed,
     "mgs": _build_mgs,
     "pod": _build_pod,
 }
@@ -155,7 +177,7 @@ def build_basis(spec: ReductionSpec | None = None,
             f"{type(spec).__name__}")
 
     from repro_torch.core.backend import resolve_backend
-    from repro_torch.data.providers import materialize_source
+    from repro_torch.data.providers import as_provider, materialize_source
 
     device = resolve_device(spec.device)
     # ------------------------------------------- workdir build lifecycle --
@@ -188,7 +210,14 @@ def build_basis(spec: ReductionSpec | None = None,
         strategy = "greedy"
         logger.info("auto strategy -> 'greedy' (the roofline model that "
                     "picks the blocked path is not ported to repro_torch)")
-    S = materialize_source(spec.source, device)
+    if strategy == "streamed":
+        # the source stays where it is: the driver streams its tiles
+        S = as_provider(spec.source, device)
+        if S.device != device:
+            raise ValueError(f"provider places tiles on {S.device}, "
+                             f"requested {device}")
+    else:
+        S = materialize_source(spec.source, device)
 
     t0 = time.perf_counter()
     Q, pivots, errs, R, k, extras = _BUILDERS[strategy](spec, S, ckpt_dir)

@@ -1,8 +1,8 @@
 """`ReductionSpec`: one declarative description of a basis build.
 
 Port of :mod:`repro.api.spec`, limited to the fields the ported builders
-(``greedy``, ``block_greedy``, ``pod``, ``mgs``) read, plus ``device``.
-The other strategies of the reference (``streamed``, ``randomized``,
+(``greedy``, ``block_greedy``, ``streamed``, ``pod``, ``mgs``) read, plus
+``device``.  The other strategies of the reference (``randomized``,
 ``sketch+greedy``, ``batched``, ``distributed``) are named in
 ``STRATEGIES``; asking for one of them raises ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports it.
@@ -21,7 +21,6 @@ STRATEGIES = (
 
 # Strategy -> the ROADMAP.md item that ports it.
 _NOT_PORTED = {
-    "streamed": "queue 1 item 1 (WaveformProvider and the streamed driver)",
     "randomized": "queue 1 item 5 (randomized sketch)",
     "sketch+greedy": "queue 1 item 5 (randomized sketch)",
     "batched": "queue 1 item 6 (batched many-basis greedy)",
@@ -36,11 +35,15 @@ class ReductionSpec:
     Attributes:
       source: the snapshot matrix — anything
         :func:`repro_torch.data.providers.as_provider` accepts (a numpy
-        array, a torch tensor, a ``.npy`` path or a provider).
-      strategy: ``"greedy"``, ``"block_greedy"``, ``"pod"`` (Algorithm
-        1, an SVD), ``"mgs"`` (Algorithm 2, pivoted MGS), or ``"auto"``
-        (which resolves to ``"greedy"``).  The reference's other
-        strategies raise ``NotImplementedError``.
+        array, a torch tensor, a ``.npy`` path or a provider, e.g. a
+        :class:`~repro_torch.data.providers.WaveformProvider` generating
+        GW snapshot tiles on the fly; see :meth:`waveform`).
+      strategy: ``"greedy"``, ``"block_greedy"``, ``"streamed"`` (the
+        out-of-core driver: S streamed through the device in column
+        tiles, never resident), ``"pod"`` (Algorithm 1, an SVD), ``"mgs"``
+        (Algorithm 2, pivoted MGS), or ``"auto"`` (which resolves to
+        ``"greedy"``).  The reference's other strategies raise
+        ``NotImplementedError``.
       tau: stopping tolerance (the paper's ``tau``; for ``pod`` the
         smallest k with ``sigma_{k+1} < tau``).
       max_k: basis-size cap (default ``min(N, M)``).
@@ -48,23 +51,29 @@ class ReductionSpec:
         ``"auto" | "ref"`` or None (env/default).
       chunk: greedy iterations per host sync (``block_greedy`` runs
         ``max(1, chunk // block_p)`` blocks per sync).
-      block_p: pivots per sweep of S (``block_greedy``); ``1`` is the
+      tile_m: streamed tile width in columns (``streamed``).
+      block_p: pivots per sweep of S (``block_greedy``, ``streamed``);
+        ``1`` is the
         paper's stepwise selection, > 1 amortizes each read of S over
         block_p bases at the cost of pivot staleness.
       panel_ortho: orthogonalize each block through the BLAS-3 panel path
         (:func:`repro_torch.core.greedy.panel_imgs_orthogonalize`) instead
-        of p sequential GS chains (``block_greedy``, ``block_p > 1``).
+        of p sequential GS chains (``block_p > 1``).
       adaptive_block: treat ``block_p`` as a ceiling and retune the live
         width between chunks from the rank guard's rejection rate; the
         width trajectory lands in the provenance (``p_trajectory``).
       kappa, max_passes: Hoffmann iterated-GS controls.
       refresh, refresh_safety: Eq.-(6.3) exact-refresh policy
         (``"never"`` is the paper-faithful mode).
+      keep_R: accumulate the (k, M) R factor (``streamed``: on the host;
+        the one result piece that scales with M).
       workdir: directory owning the build's lifecycle: mid-build
         checkpoints in ``<workdir>/build/``, the finished basis finalized
         atomically into ``<workdir>``, the scratch removed.  Mutually
         exclusive with ``checkpoint_dir``.
-      checkpoint_dir / resume: mid-build checkpointing; ``resume`` also
+      checkpoint_dir / checkpoint_every_tiles / resume: mid-build
+        checkpointing (``checkpoint_every_tiles`` is ``streamed``-only:
+        also save every that many tiles of a sweep); ``resume`` also
         governs ``workdir``.
       callback: per-chunk callback, forwarded to the driver.
       device: where the build runs — ``"cuda"`` (default) or ``"cpu"``.
@@ -76,6 +85,7 @@ class ReductionSpec:
     max_k: Optional[int] = None
     backend: Optional[str] = None
     chunk: int = 16
+    tile_m: int = 8192
     block_p: int = 1
     panel_ortho: bool = True
     adaptive_block: bool = False
@@ -83,8 +93,10 @@ class ReductionSpec:
     max_passes: int = 3
     refresh: str = "auto"
     refresh_safety: float = 100.0
+    keep_R: bool = True
     workdir: Optional[str] = None
     checkpoint_dir: Optional[str] = None
+    checkpoint_every_tiles: int = 0
     resume: bool = False
     callback: Optional[Callable] = None
     device: str = "cuda"
@@ -103,6 +115,26 @@ class ReductionSpec:
             raise ValueError(
                 "workdir and checkpoint_dir are mutually exclusive: "
                 "workdir manages its own build/ checkpoint directory")
+
+    @classmethod
+    def waveform(cls, f, m1s, m2s, dtype=None, normalize: bool = True,
+                 **kwargs) -> "ReductionSpec":
+        """Spec over a GW waveform grid: columns generated on the fly.
+
+        Wraps ``(f, m1s, m2s)`` in a
+        :class:`~repro_torch.data.providers.WaveformProvider` on the spec's
+        device (``kwargs["device"]``, ``cuda`` unless asked): the snapshot
+        matrix is never materialized, so this pairs with
+        ``strategy="streamed"``.
+        """
+        import torch
+
+        from repro_torch.data.providers import WaveformProvider
+
+        prov = WaveformProvider(
+            f, m1s, m2s, dtype=torch.complex64 if dtype is None else dtype,
+            normalize=normalize, device=kwargs.get("device", "cuda"))
+        return cls(source=prov, **kwargs)
 
     def describe(self) -> dict:
         """JSON-serializable provenance view of this spec (source and

@@ -11,7 +11,9 @@ order and nested keys join with ``__``, as JAX's pytree flattening names
 them.  Torch tensors are copied to host numpy.
 
 Writes go to ``step_<N>.tmp`` and are atomically renamed, so a crash during
-save never corrupts the newest complete step.
+save never corrupts the newest complete step.  The reference's post-save
+corruption faults (``REPRO_FAULT_CORRUPT_LEAF``,
+``REPRO_FAULT_TRUNCATE_MANIFEST``) hit a committed step the same way.
 """
 
 from __future__ import annotations
@@ -47,6 +49,37 @@ def _fault_once(kind: str) -> bool:
     with open(marker, "w") as f:
         f.write(kind)
     return True
+
+
+def _inject_post_save_faults(final: str, manifest: dict) -> None:
+    """Env-keyed corruption faults, applied AFTER the atomic rename.
+
+    They stand for silent disk corruption of an already-committed step
+    (bit rot, a torn write on a non-atomic filesystem):
+
+      REPRO_FAULT_CORRUPT_LEAF=<name|any>  flip the last byte of that
+                                           leaf's .npy
+      REPRO_FAULT_TRUNCATE_MANIFEST=1      cut manifest.json in half
+
+    Both honor ``REPRO_FAULT_ONCE`` (see :func:`_fault_once`).  The loaders
+    must then skip the step (:func:`load_checkpoint_raw`) or name it.
+    """
+    leaf = os.environ.get("REPRO_FAULT_CORRUPT_LEAF")
+    if leaf and _fault_once("corrupt_leaf"):
+        names = [m["name"] for m in manifest["leaves"]]
+        victim = names[0] if leaf == "any" else leaf
+        if victim in names:
+            p = os.path.join(final, victim + ".npy")
+            with open(p, "r+b") as f:
+                f.seek(max(os.path.getsize(p) - 1, 0))
+                b = f.read(1)
+                f.seek(max(os.path.getsize(p) - 1, 0))
+                f.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+    if os.environ.get("REPRO_FAULT_TRUNCATE_MANIFEST") and \
+            _fault_once("truncate_manifest"):
+        p = os.path.join(final, "manifest.json")
+        with open(p, "r+b") as f:
+            f.truncate(max(os.path.getsize(p) // 2, 1))
 
 
 def _gc_orphan_tmps(directory: str, min_age_s: float = 0.0) -> None:
@@ -122,6 +155,7 @@ def save_checkpoint(tree: dict, directory: str, step: int,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    _inject_post_save_faults(final, manifest)
     return final
 
 

@@ -2,7 +2,8 @@
 
 The recommended entry point is the front door, :mod:`repro_torch.api` —
 ``build_basis(source=S, tau=...)`` dispatches to the right engine
-(``strategy="pod" | "mgs" | "greedy" | "block_greedy" | "auto"``) and
+(``strategy="pod" | "mgs" | "greedy" | "block_greedy" | "streamed" |
+"auto"``) and
 returns one ``ReducedBasis`` artifact.
 
 - :mod:`repro_torch.core.pod`            -- Algorithm 1 (POD via SVD).
@@ -13,6 +14,8 @@ returns one ``ReducedBasis`` artifact.
   Hoffmann IMGS; the chunked, stepwise and fixed-length drivers).
 - :mod:`repro_torch.core.block_greedy`   -- blocked variant (p pivots per
   sweep).
+- :mod:`repro_torch.core.streaming`      -- the out-of-core driver: S
+  streamed through the device in column tiles from a snapshot provider.
 - :mod:`repro_torch.core.rrqr`           -- optimal RRQR (Theorem 5.1).
 - :mod:`repro_torch.core.reconstruction` -- Algorithm 4 (QR + SVD-of-R).
 - :mod:`repro_torch.core.eim`            -- empirical interpolation + ROQ.
@@ -34,10 +37,12 @@ from repro_torch.core.mgs import mgs_pivoted_qr
 from repro_torch.core.pod import pod, pod_basis
 from repro_torch.core.reconstruction import reconstruction
 from repro_torch.core.rrqr import optimal_rrqr
+from repro_torch.core.streaming import StreamedGreedyResult, rb_greedy_streamed
 
 __all__ = [
     "pod", "pod_basis", "mgs_pivoted_qr", "GreedyResult", "rb_greedy",
     "rb_greedy_stepwise", "rb_greedy_scan", "imgs_orthogonalize",
     "optimal_rrqr", "reconstruction", "eim_nodes", "empirical_interpolant",
-    "roq_weights", "resolve_backend",
+    "roq_weights", "resolve_backend", "StreamedGreedyResult",
+    "rb_greedy_streamed",
 ]

@@ -9,7 +9,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sums import column_norms_sq
+
 COL_CHUNK = 8192
+
+
+def project_chunk(X: torch.Tensor, Q: torch.Tensor):
+    """``C = Q^H X`` and ``|X - Q C|^2`` per column of one column chunk:
+    the refresh's residuals, the products by ``torch.matmul`` and the
+    squares summed in a fixed order (:mod:`repro_torch.sums`).  On the card
+    a chunk's columns do not depend on where the chunk's view starts
+    (checked by ``chip_smoke.py``)."""
+    C = Q.mH @ X
+    return C, column_norms_sq(X - Q @ C)
 
 
 def residual_chunks(S: torch.Tensor, Q: torch.Tensor, col_chunk: int):

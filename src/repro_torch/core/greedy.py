@@ -216,10 +216,18 @@ def panel_imgs_orthogonalize(V: torch.Tensor, Q: torch.Tensor,
 
 
 def _column_norms_sq(S: torch.Tensor, col_chunk: int = 8192) -> torch.Tensor:
-    """sum_n |S[n, i]|^2 per column, in column chunks (no S-sized temp)."""
+    """sum_n |S[n, i]|^2 per column, in column chunks (no S-sized temp).
+
+    Each column is summed in an order fixed by N alone
+    (:func:`repro_torch.sums.column_norms_sq`), so the streamed
+    driver's tiles give the same bits as the resident S: normalized GW
+    snapshots have norms equal to an ulp, and the first pivot is their
+    argmax."""
+    from repro_torch.sums import column_norms_sq
+
     out = torch.empty(S.shape[1], dtype=S.dtype.to_real(), device=S.device)
     for lo in range(0, S.shape[1], col_chunk):
-        out[lo:lo + col_chunk] = (S[:, lo:lo + col_chunk].abs() ** 2).sum(0)
+        out[lo:lo + col_chunk] = column_norms_sq(S[:, lo:lo + col_chunk])
     return out
 
 
@@ -296,16 +304,16 @@ def greedy_refresh(S: torch.Tensor, state: GreedyState,
     an absolute error floor of eps * |s|^2.  This refresh recomputes the
     exact residual^2 of every column, ``|S - Q (Q^H S)|^2``, stores it as
     the new reference and restarts ``acc`` from zero — in place.  The
-    products go to ``torch.matmul`` (the reference left them to XLA), in
-    column chunks so that no second S-sized tensor exists.
+    products are formed in column chunks
+    (:func:`repro_torch.core.errors.project_chunk`: ``torch.matmul`` on the
+    card, as the reference left them to XLA), so that no second S-sized
+    tensor exists; the streamed driver's refresh forms the same chunks.
     """
-    from repro_torch.core.errors import residual_chunks
+    from repro_torch.core.errors import project_chunk
 
-    lo = 0
-    for E in residual_chunks(S, state.Q, col_chunk):
-        hi = lo + E.shape[1]
-        state.norms_sq[lo:hi] = (E.abs() ** 2).sum(0)
-        lo = hi
+    for lo in range(0, S.shape[1], col_chunk):
+        hi = min(lo + col_chunk, S.shape[1])
+        state.norms_sq[lo:hi] = project_chunk(S[:, lo:hi], state.Q)[1]
     state.acc.zero_()
     return state
 

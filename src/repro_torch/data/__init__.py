@@ -1,1 +1,20 @@
 """Snapshot sources for the port's drivers."""
+
+from repro_torch.data.providers import (
+    ArrayProvider,
+    FaultPlan,
+    FaultyProvider,
+    MemmapProvider,
+    SnapshotProvider,
+    WaveformProvider,
+    as_provider,
+    create_snapshot_npy,
+    materialize_source,
+    write_snapshot_npy,
+)
+
+__all__ = [
+    "SnapshotProvider", "ArrayProvider", "MemmapProvider",
+    "WaveformProvider", "FaultPlan", "FaultyProvider", "as_provider",
+    "materialize_source", "write_snapshot_npy", "create_snapshot_npy",
+]

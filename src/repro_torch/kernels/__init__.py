@@ -14,4 +14,7 @@ against) and ``ops.py`` (the wrapper: checks, launch, launch counter):
   prefill (``csrc/flash_attention.cu``).
 - ``roq_apply``     — the ROQ serving interpolant apply ``B @ F``, each
   column's bits independent of the batch width (``csrc/roq_apply.cu``).
+- ``taylorf2``      — TaylorF2 waveform tiles for the streamed build and the
+  resident S, each column's bits independent of the tile
+  (``csrc/taylorf2.cu``).
 """

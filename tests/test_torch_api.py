@@ -80,7 +80,7 @@ def test_auto_strategy_is_greedy(caplog):
 
 
 @pytest.mark.parametrize("strategy", ["distributed", "randomized",
-                                      "streamed", "batched"])
+                                      "sketch+greedy", "batched"])
 def test_unported_strategy_names_roadmap(strategy):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)

@@ -828,3 +828,103 @@ def test_mgs_and_scan_on_cuda_match_cpu(cuda, dtype):
     assert float((sa.errs - sb.errs.cpu()).abs()[:8].max()) <= tol
     g = rb_greedy(S, tau, device=cuda)
     assert torch.equal(g.pivots[:8], sb.pivots[:8])
+
+
+# ------------------------------------------------- the TaylorF2 generator --
+def _grid(n_freq, n_mc, n_eta):
+    from repro_torch.gw import chirp_grid, frequency_grid
+
+    return (frequency_grid(40.0, 1024.0, n_freq),
+            *chirp_grid(n_mc=n_mc, n_eta=n_eta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("shape", [(17, 3, 1), (1000, 40, 16)])
+def test_taylorf2_tile_matches_plain(cuda, shape, dtype, normalize):
+    """The kernel against taylorf2_from_terms on the same terms, within 10
+    eps sqrt(N) of the column norm (the phase has the same float64
+    operations in both; the normalized norms sum in other orders); one
+    launch a call; a column's bits those of any tile holding it, alone,
+    and written into a column slice of a wider matrix."""
+    from repro_torch.gw import WaveformGrid
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
+    from repro_torch.kernels.taylorf2.ref import taylorf2_tile_ref
+
+    g = WaveformGrid(*_grid(*shape), dtype=dtype, normalize=normalize,
+                     device=cuda)
+    N, M = g.shape
+    n0 = tf_ops.launches
+    full = g.tile(0, M)
+    torch.cuda.synchronize()
+    assert tf_ops.launches == n0 + 1 and full.shape == (N, M)
+    ref = taylorf2_tile_ref(g.rows, g.cols, normalize, dtype)
+    tol = _tol(dtype, N) * float(torch.linalg.vector_norm(ref, dim=0).max())
+    assert float((full - ref).abs().max()) <= tol
+    for lo, hi in ((0, 1), (M // 3, M // 3 + 1), (1, M), (M - 2, M)):
+        assert torch.equal(g.tile(lo, hi), full[:, lo:hi])
+    wide = torch.zeros((N, M + 9), dtype=dtype, device=cuda)
+    g.tile(1, M, out=wide[:, 5:4 + M])
+    assert torch.equal(wide[:, 5:4 + M], full[:, 1:])
+    assert bool((wide[:, :5] == 0).all()) and bool((wide[:, 4 + M:] == 0)
+                                                    .all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_streamed_equals_resident_on_cuda(cuda, dtype, p):
+    """On the card the streamed build over a WaveformProvider is the
+    resident build over build_snapshot_matrix's S of the same grid, bit for
+    bit (k, stop, pivots, Q, errs, R), at one tile, M-divisible tiles and
+    a ragged odd-width last tile (the general greedy_update route beside
+    the sm90 one); tau above the refresh trigger."""
+    from repro_torch.core.block_greedy import _rb_greedy_block_impl
+    from repro_torch.core.greedy import rb_greedy
+    from repro_torch.core.streaming import rb_greedy_streamed
+    from repro_torch.data import WaveformProvider
+    from repro_torch.gw import build_snapshot_matrix
+
+    grid = _grid(600, 20, 6)  # M = 120
+    prov = WaveformProvider(*grid, dtype=dtype, normalize=False,
+                            device=cuda)
+    S = build_snapshot_matrix(*grid, dtype=dtype, device=cuda,
+                              normalize=False, chunk=50)
+    assert torch.equal(S, prov.materialize())
+    tau = 3e-2 * float(torch.linalg.vector_norm(S, dim=0).max())
+    ref = rb_greedy(S, tau, device=cuda) if p == 1 else \
+        _rb_greedy_block_impl(S, tau, p=p, device=cuda)
+    k = ref.k
+    assert k > 8
+    for tile_m in (120, 40, 33):
+        got = rb_greedy_streamed(prov, tau, tile_m=tile_m, block_p=p)
+        assert got.k == k and got.stop == ref.stop
+        assert torch.equal(got.pivots[:k], ref.pivots[:k].cpu())
+        assert torch.equal(got.errs[:k], ref.errs[:k].cpu())
+        assert torch.equal(got.Q, ref.Q)
+        assert torch.equal(got.R[:k], ref.R[:k].cpu())
+
+
+@pytest.mark.cuda
+def test_host_provider_copies_through_pinned_buffers(cuda):
+    """A host matrix (pinned or not) stays on the host; its tiles reach the
+    card through the side stream with the values of a device slice, and
+    the streamed build over it is the one over the device matrix."""
+    from repro_torch.core.streaming import rb_greedy_streamed
+    from repro_torch.data import ArrayProvider
+
+    gen = torch.Generator().manual_seed(11)
+    S = _rand(gen, (300, 257), torch.complex64, "cpu")
+    for host in (S, S.pin_memory()):
+        prov = ArrayProvider(host, device=cuda)
+        for lo, hi in ((0, 64), (64, 257), (100, 101)):
+            assert torch.equal(prov.tile(lo, hi).cpu(), S[:, lo:hi])
+        assert prov.bytes_to_device == S.element_size() * 300 * (64 + 193
+                                                                 + 1)
+    dev = ArrayProvider(S.to(cuda), device=cuda)
+    a = rb_greedy_streamed(ArrayProvider(S.pin_memory(), device=cuda), 1e-2,
+                           max_k=20, tile_m=64)
+    b = rb_greedy_streamed(dev, 1e-2, max_k=20, tile_m=64)
+    assert a.k == b.k and torch.equal(a.Q, b.Q)
+    assert torch.equal(a.pivots, b.pivots)

@@ -37,7 +37,25 @@ def test_torch_gw_roq_runs_on_cpu():
     assert out["median_rel_err"] < 1e-4 and out["max_rel_err"] < 1e-2
 
 
-@pytest.mark.parametrize("name", ["torch_quickstart", "torch_gw_roq"])
+def test_torch_streaming_gw_runs_on_cpu(tmp_path, capsys):
+    """The out-of-core example's pipeline at a tenth of its grid (a 36 x 10
+    chirp grid, 400 frequencies, 60-column tiles): the build meets tau,
+    the spot checks sit within it, and a re-run resumes from the finished
+    checkpoint without rework."""
+    mod = _load("torch_streaming_gw")
+    kw = dict(device="cpu", ckpt=str(tmp_path / "ck"), n_freq=400,
+              n_mc=36, n_eta=10, tile_m=60)
+    out = mod.main(**kw)
+    assert out["stop"] == "STOP_TAU" and out["k"] >= 10
+    assert out["max_spot_err"] < 1e-4
+    assert "basis   1" in capsys.readouterr().out
+    again = mod.main(**kw)
+    assert again["k"] == out["k"]
+    assert "basis   1" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_gw_roq",
+                                  "torch_streaming_gw"])
 def test_torch_examples_import_no_jax(name):
     """The port's examples import neither JAX nor the JAX package, and
     default to the card."""
