@@ -15,8 +15,11 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
   kernels    each kernel vs its plain version at the paths' shapes and at
              small ragged ones, with the tolerance of each check, each call
              on the route its wrapper's rule gives and, for greedy_update,
-             imgs_project and imgs_panel, on their general routes too (two
-             launches bitwise equal); both routes of greedy_update and
+             imgs_project, imgs_panel, roq_apply and taylorf2_tile, on their
+             general routes too (two launches bitwise equal; roq_apply's
+             sm90 kernel bitwise its general one, taylorf2_tile's too
+             unnormalized; a tile's columns bitwise those of a wider tile
+             and of a strided slice); both routes of greedy_update and
              imgs_project with a false active flag on NaN-filled S / Q (the
              zero-vector result exactly: the kernel never read them) and a
              true one (bitwise the unflagged call); times of the kernel,
@@ -24,7 +27,8 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              events, best of n, the card's time alone: the host has issued
              a call before the card reaches it), with the routes of a
              wrapper timed in turns, and the bound
-  snapshots  generation of S on the card
+  snapshots  generation of S on the card, every taylorf2_tile launch on the
+             sm90 route
   build_basis  the full-width greedy build through the front door;
              launches of each kernel (counted from 0 just before it), every
              greedy_update and imgs_project launch on the sm90 route, the
@@ -45,15 +49,25 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
   roq_serve  the full-width greedy basis and the cut's greedy basis saved
              as artifacts and served by launch.serve's basis mode (4,096
              requests, max_batch 64, max_wait 2 ms), launches counted from 0
-             just before it: every answer resolved and bitwise its direct
-             evaluation, no death, breaker or rejection, the error within
-             the launcher's tolerance; roq_apply's time per bucket beside
-             torch.matmul's, and the widths at which torch.matmul's
-             columns change their bits (why the apply is a kernel)
+             just before it, every roq_apply launch on the sm90 route:
+             every answer resolved and bitwise its direct evaluation, no
+             death, breaker or rejection, the error within the launcher's
+             tolerance; roq_apply's two routes timed per bucket (complex64
+             and complex128) beside torch.matmul, and the widths at which
+             torch.matmul's columns change their bits (why the apply is a
+             kernel)
   block_build  the full-width blocked build through the front door, with
              the bases freed first; launches counted from 0 just
              before it, every imgs_panel and imgs_project launch on the
              sm90 route, the same checks, k within the staleness bound
+  streamed   the streamed driver over generated tiles at M 131,072, bitwise
+             the resident build at two tilings and after a crash and
+             resume; a pinned host provider's pivots those of the resident
+             build of the same columns
+  streamed_paper, streamed_paper_blocked  the paper's M = 3,276,800 (S
+             never formed), stepwise then block_p 8; every generator launch
+             on the sm90 route, one generation of each tile a pass; the
+             stepwise basis sampled within 100 tau
 
   lm_kernels  flash_attention's two kernels vs the plain version at the
              serve path's shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16,
@@ -329,34 +343,42 @@ def check_imgs_project(v, Q, general: bool = False) -> float:
     return err
 
 
-def check_roq_apply(B, F) -> float:
-    """Kernel vs plain on one input: one launch a call, the same bits
-    twice, each column's bits those of the column alone in a width-2 call
-    (the serving contract); within the rounding of a k-term sum of
-    |B||F|.  Returns the max abs error."""
+def check_roq_apply(B, F, general: bool = False) -> float:
+    """Kernel vs plain on one input, on the route kernel_route gives (or,
+    with ``general``, the general kernel): one launch on that route a call,
+    the same bits twice, each column's bits those of the column alone in a
+    width-2 call (the serving contract), the sm90 kernel's bits those of
+    the general one; within the rounding of a k-term sum of |B||F|.
+    Returns the max abs error."""
     from repro_torch.kernels.roq_apply import ops as ra_ops
     from repro_torch.kernels.roq_apply.ref import roq_apply_ref
 
-    n0 = ra_ops.launches
-    out = ra_ops.roq_apply(B, F)
-    again = ra_ops.roq_apply(B, F)
+    k, nb = B.shape[1], F.shape[1]
+    route = "general" if general else ra_ops.kernel_route(B.dtype, k, nb)
+    fn = ra_ops._roq_apply_general if general else ra_ops.roq_apply
+    what = f"roq_apply [{route}] {tuple(B.shape)} x {nb} {B.dtype}"
+    n0 = getattr(ra_ops, f"launches_{route}")
+    out = fn(B, F)
+    again = fn(B, F)
     ref = roq_apply_ref(B, F)
     torch.cuda.synchronize()
-    check(ra_ops.launches == n0 + 2, "roq_apply: the calls did not launch")
-    check(torch.equal(out, again), "roq_apply: two launches differ")
-    for j in sorted({0, F.shape[1] // 2, F.shape[1] - 1}):
+    check(getattr(ra_ops, f"launches_{route}") == n0 + 2,
+          f"{what}: the calls did not launch the {route} kernel")
+    check(torch.equal(out, again), f"{what}: two launches differ")
+    for j in sorted({0, nb // 2, nb - 1}):
         pair = F[:, [j, j]].contiguous()
-        check(torch.equal(ra_ops.roq_apply(B, pair)[:, 0], out[:, j]),
-              f"roq_apply {tuple(B.shape)} {B.dtype}: column {j} depends "
-              "on the batch width")
-    k = B.shape[1]
+        check(torch.equal(fn(B, pair)[:, 0], out[:, j]),
+              f"{what}: column {j} depends on the batch width")
+    if route == "sm90":
+        check(torch.equal(out, ra_ops._roq_apply_general(B, F)),
+              f"{what}: not bitwise the general kernel")
     scale = float((B.abs() @ F.abs()).max())
     tol = sum_tol(B.dtype, k) * scale
     err = float((out - ref).abs().max())
-    check(err <= tol, f"roq_apply {tuple(B.shape)} x {F.shape[1]} {B.dtype}: "
-          f"{err} > {tol}")
-    emit("kernels", kernel="roq_apply", dtype=str(B.dtype),
-         shape=[*B.shape, F.shape[1]], max_abs_err=err, tol=tol)
+    check(err <= tol, f"{what}: {err} > {tol}")
+    emit("kernels", kernel="roq_apply", route=route, dtype=str(B.dtype),
+         shape=[*B.shape, nb], max_abs_err=err, tol=tol,
+         bitwise_general=route == "sm90")
     return err
 
 
@@ -455,19 +477,22 @@ def timed(name, shape, dtype, nbytes, flops, err, reps, kernel, plain,
 
 
 def timed_turns(name, shape, dtype, nbytes, flops, errs, reps, kernels,
-                plain, library, host_reps=0) -> dict:
+                plain, library, host_reps=0, flops_per_s=FP32_FLOPS,
+                **fields) -> dict:
     """A kernel's routes timed in turns beside its plain version and the
     library yardstick (routes, plain, library, routes reversed; best of
-    ``reps`` each); one kernels line per route.  ``kernels`` and ``errs``
-    map each entry name to its call and its max abs error.  With
-    ``host_reps``, also the time of a call issued to an idle card, the
+    ``reps`` each; ``library`` None where no one PyTorch call computes the
+    function); one kernels line per route, with ``fields``.  ``kernels``
+    and ``errs`` map each entry name to its call and its max abs error.
+    With ``host_reps``, also the time of a call issued to an idle card, the
     host's cost of issuing it included (``call_ms``)."""
-    b = bound(nbytes, flops)
+    b = bound(nbytes, flops, flops_per_s)
     turns = {n: [] for n in (*kernels, "plain", "library")}
     for n, fn in kernels.items():
         turns[n].append(time_ms(fn, reps))
     turns["plain"].append(time_ms(plain, reps))
-    turns["library"].append(time_ms(library, reps))
+    turns["library"].append(None if library is None
+                            else time_ms(library, reps))
     for n, fn in reversed(kernels.items()):
         turns[n].append(time_ms(fn, reps))
     calls = {}
@@ -484,7 +509,8 @@ def timed_turns(name, shape, dtype, nbytes, flops, errs, reps, kernels,
             if host_reps else {}
         emit("kernels", kernel=n, timing_shape=shape, dtype=str(dtype),
              turns_ms=turns[n], bound_share=b[0] / ms,
-             achieved_gb_s=nbytes / (ms * 1e-3) / 1e9, **extra, **out[n])
+             achieved_gb_s=nbytes / (ms * 1e-3) / 1e9, **fields, **extra,
+             **out[n])
     return out
 
 
@@ -572,11 +598,14 @@ def kernel_phase(S, dev) -> dict:
             V = rand(gen, (n, p), dtype, dev)
             for general in (False, True):
                 check_imgs_panel(V, Q.contiguous(), general)
-        # a ragged last row group, k 1, widths 1 to 128
+        # both routes: a ragged last panel, k 1, widths 1 to 128, and k so
+        # large that F overflows the sm90 kernel's shared memory (general)
         for n, k, nb in ((17, 3, 1), (301, 1, 5), (1000, 83, 64),
-                         (129, 100, 128)):
-            check_roq_apply(rand(gen, (n, k), dtype, dev),
-                            rand(gen, (k, nb), dtype, dev))
+                         (129, 100, 128), (300, 4000, 16)):
+            B, F = rand(gen, (n, k), dtype, dev), rand(gen, (k, nb), dtype,
+                                                        dev)
+            for general in (False, True):
+                check_roq_apply(B, F, general)
 
     out = time_greedy_update(S, gen, dev)
     # the f32 case of greedy_update (greedy_update_real on the TPU) at the
@@ -1126,8 +1155,9 @@ def paper_phase(S, f, m1, m2, dev, cols, greedy_wall, smi, reset_counts,
 
 def roq_serve_phase(basis, cut_basis, dev, smi, reset_counts, read_counts):
     """Both bases saved as artifacts and served by the launcher's basis
-    mode; roq_apply's time per bucket beside torch.matmul's.  Returns the
-    launches of the serving run and the timing entry of roq_apply."""
+    mode, every roq_apply launch on the sm90 route; roq_apply's two routes
+    timed per bucket beside torch.matmul.  Returns the launches of the
+    serving run and the timing entries of roq_apply's routes."""
     from repro_torch.kernels.roq_apply import ops as ra_ops
     from repro_torch.kernels.roq_apply.ref import roq_apply_ref
     from repro_torch.launch.serve import main as serve_main
@@ -1148,8 +1178,10 @@ def roq_serve_phase(basis, cut_basis, dev, smi, reset_counts, read_counts):
         run_s = time.perf_counter() - t0
         launches = read_counts()
     c = stats["counters"]
-    check(launches["roq_apply"] > 0,
-          f"roq_serve: roq_apply was not launched: {launches}")
+    check(launches["roq_apply"] > 0
+          and launches["roq_apply_sm90"] == launches["roq_apply"],
+          f"roq_serve: roq_apply was not launched, or left the sm90 route: "
+          f"{launches}")
     check(stats["served"] == c["completed"] == SERVE_REQUESTS,
           f"roq_serve: {stats['served']} served, {c['completed']} "
           f"completed of {SERVE_REQUESTS}")
@@ -1162,29 +1194,47 @@ def roq_serve_phase(basis, cut_basis, dev, smi, reset_counts, read_counts):
     check(stats["max_err"] <= ROQ_MAX_ERR,
           f"roq_serve: max error {stats['max_err']} > {ROQ_MAX_ERR}")
 
-    # roq_apply per bucket on the full-width basis, beside torch.matmul;
-    # the entry of the kernels line at the largest bucket
-    B = basis.eim().B.contiguous()
+    # roq_apply per bucket on the full-width basis (and on its complex128
+    # copy), both routes in turns beside torch.matmul; the entries of the
+    # kernels line at the served dtype's largest bucket
     gen = torch.Generator().manual_seed(SEED)
     per_bucket = []
-    entry = None
-    b = 2
-    while b <= SERVE_MAX_BATCH:
-        F = rand(gen, (basis.k, b), B.dtype, B.device)
-        err = check_roq_apply(B, F)
-        # bytes: B and F read once, out written once
-        nbytes = B.nbytes + F.nbytes + B.shape[0] * b * B.element_size()
-        bms, bby = bound(nbytes, macs_flops(B.dtype) * B.shape[0]
-                         * basis.k * b)
-        row = {"bucket": b, "ms": time_ms(lambda: ra_ops.roq_apply(B, F), 50),
-               "matmul_ms": time_ms(lambda: torch.matmul(B, F), 50),
-               "bound_ms": bms, "bound_by": bby}
-        per_bucket.append(row)
-        if b == SERVE_MAX_BATCH:
-            entry = {"ms": row["ms"], "library_ms": row["matmul_ms"],
-                     "plain_ms": time_ms(lambda: roq_apply_ref(B, F), 50),
-                     "bound_ms": bms, "bound_by": bby, "max_abs_err": err}
-        b *= 2
+    entries = {}
+    for dtype in (torch.complex64, torch.complex128):
+        B = basis.eim().B.to(dtype).contiguous()
+        b = 2
+        while b <= SERVE_MAX_BATCH:
+            F = rand(gen, (basis.k, b), B.dtype, B.device)
+            errs = {"roq_apply": check_roq_apply(B, F),
+                    "roq_apply_general": check_roq_apply(B, F, True)}
+            # bytes: B and F read once, out written once
+            nbytes = B.nbytes + F.nbytes + B.shape[0] * b * B.element_size()
+            flops = macs_flops(B.dtype) * B.shape[0] * basis.k * b
+            rate = FP32_FLOPS if dtype == torch.complex64 else FP64_FLOPS
+            bms, bby = bound(nbytes, flops, rate)
+            turns = {"sm90": [], "general": [], "matmul": []}
+            calls = {"sm90": lambda: ra_ops.roq_apply(B, F),
+                     "general": lambda: ra_ops._roq_apply_general(B, F),
+                     "matmul": lambda: torch.matmul(B, F)}
+            for name in ("sm90", "general", "matmul", "matmul", "general",
+                         "sm90"):
+                turns[name].append(time_ms(calls[name], 50))
+            row = {"dtype": str(dtype), "bucket": b,
+                   "route": ra_ops.kernel_route(dtype, basis.k, b),
+                   "ms": min(turns["sm90"]),
+                   "general_ms": min(turns["general"]),
+                   "matmul_ms": min(turns["matmul"]), "bound_ms": bms,
+                   "bound_by": bby}
+            per_bucket.append(row)
+            if b == SERVE_MAX_BATCH and dtype == basis.Q.dtype:
+                plain_ms = time_ms(lambda: roq_apply_ref(B, F), 50)
+                for name, ms in (("roq_apply", row["ms"]),
+                                 ("roq_apply_general", row["general_ms"])):
+                    entries[name] = {
+                        "ms": ms, "library_ms": row["matmul_ms"],
+                        "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": bby, "max_abs_err": errs[name]}
+            b *= 2
     # why the apply is a kernel: the widths 2..128 at which torch.matmul's
     # (cuBLAS's) columns lose the bits they have at width 128
     matmul_widths = {}
@@ -1212,16 +1262,22 @@ def roq_serve_phase(basis, cut_basis, dev, smi, reset_counts, read_counts):
          direct_mismatches=stats["direct_mismatches"],
          apply_route="roq_apply", apply_per_bucket=per_bucket,
          matmul_width_dependent_widths=matmul_widths,
-         launches={"roq_apply": launches["roq_apply"]})
-    return launches, entry
+         launches={n: launches[n] for n in (
+             "roq_apply", "roq_apply_sm90", "roq_apply_general")})
+    return launches, entries
 
 
 # ------------------------------------------------ the TaylorF2 generator ----
-def check_taylorf2(args, dtype, normalize, dev, lo=0, hi=None) -> float:
+def check_taylorf2(args, dtype, normalize, dev, lo=0, hi=None,
+                   general=False) -> float:
     """Kernel vs plain on columns [lo, hi) of the grid ``args`` (f, m1s,
-    m2s): one launch; within 10 eps sqrt(N) of the largest column norm;
-    the tile's columns bitwise those of a wider tile and of
-    ``WaveformProvider.column``.  Returns the max abs error."""
+    m2s), on the route kernel_route gives (or, with ``general``, the
+    general kernel): one launch on that route; within 10 eps sqrt(N) of the
+    largest column norm; the tile's columns bitwise those of a wider tile,
+    of a tile written into a column slice of a wider matrix and of
+    ``WaveformProvider.column`` (on the route's kernel); unnormalized, the
+    sm90 kernel's bits those of the general one.  Returns the max abs
+    error."""
     from repro_torch.data import WaveformProvider
     from repro_torch.kernels.taylorf2 import ops as tf_ops
     from repro_torch.kernels.taylorf2.ref import taylorf2_tile_ref
@@ -1231,72 +1287,115 @@ def check_taylorf2(args, dtype, normalize, dev, lo=0, hi=None) -> float:
     g = prov.grid
     N, M = g.shape
     hi = M if hi is None else hi
-    n0 = tf_ops.launches
-    t = g.tile(lo, hi)
+    route = "general" if general else tf_ops.kernel_route(N, dtype)
+
+    def tile(a, b, out=None):
+        if general:
+            return tf_ops._taylorf2_tile_general(g.rows, g.cols, a, b,
+                                                 normalize, dtype, out)
+        return g.tile(a, b, out)
+
+    what = (f"taylorf2_tile [{route}] ({N}, [{lo}, {hi})) {dtype} "
+            f"normalize={normalize}")
+    n0 = getattr(tf_ops, f"launches_{route}")
+    t = tile(lo, hi)
     torch.cuda.synchronize()
-    check(tf_ops.launches == n0 + 1, "taylorf2_tile: the call did not launch")
+    check(getattr(tf_ops, f"launches_{route}") == n0 + 1,
+          f"{what}: the call did not launch the {route} kernel")
     r = taylorf2_tile_ref(g.rows, g.cols[:, lo:hi].contiguous(), normalize,
                           dtype)
     tol = sum_tol(dtype, N) * float(torch.linalg.vector_norm(r, dim=0).max())
     err = float((t - r).abs().max())
-    what = f"taylorf2_tile ({N}, [{lo}, {hi})) {dtype} normalize={normalize}"
     check(err <= tol, f"{what}: {err} > {tol}")
     a, b = max(lo - 5, 0), min(hi + 7, M)
-    check(torch.equal(g.tile(a, b)[:, lo - a:hi - a], t),
+    check(torch.equal(tile(a, b)[:, lo - a:hi - a], t),
           f"{what}: columns differ inside a wider tile")
-    for j in sorted({lo, (lo + hi) // 2, hi - 1}):
-        check(torch.equal(prov.column(j), t[:, j - lo]),
-              f"{what}: column {j} differs alone")
-    emit("kernels", kernel="taylorf2_tile", dtype=str(dtype),
+    wide = torch.zeros((N, hi - lo + 9), dtype=dtype, device=dev)
+    check(torch.equal(tile(lo, hi, wide[:, 3:3 + hi - lo]), t),
+          f"{what}: columns differ written into a strided slice")
+    if not general:
+        for j in sorted({lo, (lo + hi) // 2, hi - 1}):
+            check(torch.equal(prov.column(j), t[:, j - lo]),
+                  f"{what}: column {j} differs alone")
+    if route == "sm90" and not normalize:
+        check(torch.equal(t, tf_ops._taylorf2_tile_general(
+            g.rows, g.cols, lo, hi, False, dtype)),
+            f"{what}: not bitwise the general kernel")
+    emit("kernels", kernel="taylorf2_tile", route=route, dtype=str(dtype),
          normalize=normalize, shape=[N, hi - lo], first_column=lo,
          max_abs_err=err, tol=tol, exact=bool(torch.equal(t, r)))
     return err
 
 
 def taylorf2_phase(dev) -> dict:
-    """The generator's checks at the kernels phase's shapes, and its times
-    on a paper-path tile (10,000 x 65,536 complex64, normalized)."""
+    """The generator's checks at the kernels phase's shapes, on both routes
+    (an N whose slab overflows the sm90 kernel's shared memory takes the
+    general one), and both routes' times in turns on a paper-path tile
+    (10,000 x 65,536 complex64), normalized (the path's tiles) and not.
+    Returns the entries of the kernels line, one per route."""
     from repro_torch.gw import WaveformGrid, chirp_grid, frequency_grid
     from repro_torch.kernels.taylorf2 import ops as tf_ops
     from repro_torch.kernels.taylorf2.ref import taylorf2_tile_ref
 
     grid = (frequency_grid(F_MIN, F_MAX, N),
             *chirp_grid(n_mc=N_MC, n_eta=N_ETA))
-    err = check_taylorf2(grid, torch.complex64, True, dev, 40_960, 45_056)
-    check_taylorf2(grid, torch.complex128, False, dev, 40_960, 45_056)
-    for n, n_mc, n_eta in ((17, 3, 1), (17, 1, 1)):
+    check(tf_ops.kernel_route(N, torch.complex64) == "sm90"
+          and tf_ops.kernel_route(N, torch.complex128) == "sm90",
+          "taylorf2_tile: the path's N is not on the sm90 route")
+    errs = {True: {}, False: {}}   # by normalize, then route
+    for general in (False, True):
+        name = "taylorf2_tile_general" if general else "taylorf2_tile"
+        for normalize in (True, False):
+            errs[normalize][name] = check_taylorf2(
+                grid, torch.complex64, normalize, dev, 40_960, 45_056,
+                general)
+        # ragged: a width and a first column off the cluster's columns
+        check_taylorf2(grid, torch.complex128, False, dev, 40_963, 45_056,
+                       general)
+        check_taylorf2(grid, torch.complex64, True, dev, 5, 1_000, general)
+    # an N past the sm90 kernel's slab: the general route's own shape
+    big = N
+    while tf_ops.kernel_route(big, torch.complex64) == "sm90":
+        big += N
+    for n, n_mc, n_eta in ((17, 3, 1), (17, 1, 1), (big, 3, 2)):
         small = (frequency_grid(F_MIN, F_MAX, n),
                  *chirp_grid(n_mc=n_mc, n_eta=n_eta))
         for dtype in (torch.complex64, torch.complex128):
             for normalize in (True, False):
-                check_taylorf2(small, dtype, normalize, dev)
+                for general in (False, True):
+                    check_taylorf2(small, dtype, normalize, dev,
+                                   general=general)
 
     w = STREAM_TILE
     g = WaveformGrid(*grid, dtype=torch.complex64, device=dev)
     buf = torch.empty((N, w), dtype=torch.complex64, device=dev)
+    out = {}
+    for normalize in (True, False):
+        def plain():
+            # the plain version in 4,096-column chunks (its float64
+            # temporaries of a whole tile would not fit beside S)
+            for lo in range(0, w, 4096):
+                buf[:, lo:lo + 4096] = taylorf2_tile_ref(
+                    g.rows, g.cols[:, lo:lo + 4096], normalize,
+                    torch.complex64)
 
-    def plain():
-        # the plain version in 4,096-column chunks (its float64
-        # temporaries of a whole tile would not fit beside S)
-        for lo in range(0, w, 4096):
-            buf[:, lo:lo + 4096] = taylorf2_tile_ref(
-                g.rows, g.cols[:, lo:lo + 4096], True, torch.complex64)
-
-    gu = WaveformGrid(*grid, dtype=torch.complex64, normalize=False,
-                      device=dev)
-    unnorm_ms = time_ms(lambda: gu.tile(0, w, out=buf), 10)
-    entry = timed("taylorf2_tile", [N, w], torch.complex64,
-                  buf.nbytes + g.rows.nbytes + g.cols[:, :w].nbytes,
-                  tf_ops.flops(N, w, True), err, 10,
-                  lambda: g.tile(0, w, out=buf), plain, None,
-                  flops_per_s=FP64_FLOPS)
-    emit("kernels", kernel="taylorf2_tile", timing_shape=[N, w],
-         normalize=False, ms=unnorm_ms,
-         bound_ms=bound(buf.nbytes, tf_ops.flops(N, w, False),
-                        FP64_FLOPS)[0])
+        args = (g.rows, g.cols, 0, w, normalize, torch.complex64, buf)
+        # bytes: the tile written once and the terms read once; operations:
+        # float64 instructions, each issued at half the FMA rate in flops
+        entries = timed_turns(
+            "taylorf2_tile", [N, w], torch.complex64,
+            buf.nbytes + g.rows.nbytes + g.cols[:, :w].nbytes,
+            tf_ops.f64_instructions(N, w, normalize), errs[normalize], 10,
+            {"taylorf2_tile": lambda: tf_ops.taylorf2_tile(*args),
+             "taylorf2_tile_general":
+                 lambda: tf_ops._taylorf2_tile_general(*args)},
+            plain, None, flops_per_s=FP64_FLOPS / 2, normalize=normalize,
+            f64_instructions=tf_ops.f64_instructions(N, w, normalize))
+        if normalize:
+            out = entries
     del buf
     torch.cuda.empty_cache()
-    return entry
+    return out
 
 
 # ------------------------------------------------------ the streamed cell ----
@@ -1327,6 +1426,9 @@ def streamed_phase(S, resident, f, m1, m2, dev) -> None:
     from repro_torch.core.streaming import rb_greedy_streamed
     from repro_torch.data import ArrayProvider, FaultPlan, FaultyProvider
     from repro_torch.data import WaveformProvider
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
+
+    n0 = (tf_ops.launches, tf_ops.launches_sm90)
 
     def same(b, what):
         ok = (b.k == resident.k
@@ -1371,10 +1473,14 @@ def streamed_phase(S, resident, f, m1, m2, dev) -> None:
             and np.array_equal(r.errs[:k].numpy(), resident.errs)
             and torch.equal(r.Q[:, :k], resident.Q),
             "streamed resume: not bitwise the uninterrupted build")
+    gen_launches = tf_ops.launches - n0[0]
+    check(gen_launches == tf_ops.launches_sm90 - n0[1] > 0,
+          "streamed: a taylorf2_tile launch left the sm90 route")
     emit("streamed", check="resident_parity", M=M, tile_m=list(PARITY_TILES),
          wall_s=[parity[t] for t in PARITY_TILES], k=resident.k,
          stop=resident.provenance["stop"], bitwise=True,
-         resume_crash_at_tile_read=crash_at, resume_bitwise=True)
+         resume_crash_at_tile_read=crash_at, resume_bitwise=True,
+         taylorf2_launches_sm90=gen_launches)
 
     # a host matrix: every 8th column of S, pinned, streamed through the
     # side stream, against the resident build of the same columns
@@ -1476,12 +1582,12 @@ def paper_streamed(dev, f, smi, reset_counts, read_counts, tf_ms):
                 pv["stop"] == "STOP_RANK"),
                 f"{phase}: {pv['sweeps']} sweeps / {pv['columns']} columns "
                 f"for k {k} ({pv['stop']})")
-            sm90 = ("greedy_update", "imgs_project")
+            sm90 = ("greedy_update", "imgs_project", "taylorf2_tile")
             k1 = k
         else:
             check(k <= int(1.15 * k1) + BLOCK_P,
                   f"{phase}: k {k} above 1.15 * {k1} + {BLOCK_P}")
-            sm90 = ("imgs_project", "imgs_panel")
+            sm90 = ("imgs_project", "imgs_panel", "taylorf2_tile")
         check(all(launches[n] > 0 and launches[n + "_sm90"] == launches[n]
                   for n in sm90),
               f"{phase}: a launch of {sm90} left the sm90 route: {launches}")
@@ -1535,7 +1641,7 @@ def main() -> None:
 
     # the wrappers that route between two kernels count each route apart
     routed = ("greedy_update", "imgs_project", "imgs_panel",
-              "flash_attention")
+              "flash_attention", "roq_apply", "taylorf2_tile")
 
     def reset_counts():
         for mod in counters.values():
@@ -1570,20 +1676,24 @@ def main() -> None:
     f = frequency_grid(F_MIN, F_MAX, N)
     m1, m2 = chirp_grid(n_mc=N_MC, n_eta=N_ETA)
     torch.cuda.synchronize()
-    n0 = tf_ops.launches
+    n0 = (tf_ops.launches, tf_ops.launches_sm90)
     t0 = time.perf_counter()
     S = build_snapshot_matrix(f, m1, m2, dtype=torch.complex64, device=dev)
     torch.cuda.synchronize()
+    snap_s = time.perf_counter() - t0
+    check(tf_ops.launches - n0[0] == tf_ops.launches_sm90 - n0[1] > 0,
+          "snapshots: a taylorf2_tile launch left the sm90 route")
     norms = torch.linalg.vector_norm(S, dim=0)
     check(tuple(S.shape) == (N, M) and bool(torch.isfinite(norms).all()),
           "snapshots not finite / wrong shape")
     check(float((norms - 1).abs().max()) <= 1e-4, "snapshots not unit-norm")
-    emit("snapshots", seconds=time.perf_counter() - t0, shape=[N, M],
+    emit("snapshots", seconds=snap_s, shape=[N, M],
          dtype="complex64", gbytes=S.nbytes / 1e9,
-         taylorf2_launches=tf_ops.launches - n0)
+         taylorf2_launches=tf_ops.launches - n0[0],
+         taylorf2_launches_sm90=tf_ops.launches_sm90 - n0[1])
 
     timings = kernel_phase(S, dev)
-    timings["taylorf2_tile"] = taylorf2_phase(dev)
+    timings.update(taylorf2_phase(dev))
 
     cols = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :8192].to(dev)
@@ -1711,8 +1821,9 @@ def main() -> None:
     cut_basis, paper_launches = paper_phase(
         S, f, m1, m2, dev, cols, walls["build_basis"], smi, reset_counts,
         read_counts)
-    roq_launches, timings["roq_apply"] = roq_serve_phase(
+    roq_launches, roq_timings = roq_serve_phase(
         basis, cut_basis, dev, smi, reset_counts, read_counts)
+    timings.update(roq_timings)
 
     # --- the blocked path: the bases freed first (the greedy basis kept on
     # the host side, for the streamed builds' parity)
@@ -1780,13 +1891,20 @@ def main() -> None:
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96",
              serve_launches, "flash_attention_general"),
-            ("roq_apply", "src/repro_torch/csrc/roq_apply.cu",
+            ("roq_apply", "src/repro_torch/csrc/roq_apply_sm90.cu",
              "src/repro/serving/roq.py:115-122 (XLA GEMMs, not a Pallas "
-             "kernel)", roq_launches, "roq_apply"),
-            ("taylorf2_tile", "src/repro_torch/csrc/taylorf2.cu",
+             "kernel)", roq_launches, "roq_apply_sm90"),
+            ("roq_apply_general", "src/repro_torch/csrc/roq_apply.cu",
+             "src/repro/serving/roq.py:115-122 (XLA GEMMs, not a Pallas "
+             "kernel)", roq_launches, "roq_apply_general"),
+            ("taylorf2_tile", "src/repro_torch/csrc/taylorf2_sm90.cu",
              "src/repro/data/providers.py:193-199 (jax.jit of "
              "taylorf2_batch, not a Pallas kernel)", stream_launches,
-             "taylorf2_tile")):
+             "taylorf2_tile_sm90"),
+            ("taylorf2_tile_general", "src/repro_torch/csrc/taylorf2.cu",
+             "src/repro/data/providers.py:193-199 (jax.jit of "
+             "taylorf2_batch, not a Pallas kernel)", stream_launches,
+             "taylorf2_tile_general")):
         t = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path[key],

@@ -26,7 +26,9 @@
 //     F[j, :] contiguously and reads each B[n, j] as one broadcast;
 //   * rows of B are read along j by the same thread: consecutive loads of
 //     one row fall in the same cache lines, which L1 keeps.
-// A tiled, shared-memory version (F staged once per block) is later work.
+// This is the general route: csrc/roq_apply_sm90.cu (a panel of B and all
+// of F in shared memory, the same sums in the same order, so the same
+// bits) takes every (k, nb) whose F fits in shared memory.
 #include "common.cuh"
 
 namespace {
@@ -76,14 +78,13 @@ int launch(const void* B, const void* F, void* out, long long N, long long k,
 
 }  // namespace
 
-#define ROQ_APPLY_ENTRY(SFX, R, CPLX)                                      \
-  extern "C" int roq_apply_##SFX(const void* B, const void* F, void* out, \
-                                 long long N, long long k, long long nb,  \
-                                 void* stream) {                          \
-    return launch<R, CPLX>(B, F, out, N, k, nb, stream);                  \
+#define ROQ_APPLY_ENTRY(NAME, R, CPLX)                                       \
+  extern "C" int NAME(const void* B, const void* F, void* out, long long N,  \
+                      long long k, long long nb, void* stream) {             \
+    return launch<R, CPLX>(B, F, out, N, k, nb, stream);                     \
   }
 
-ROQ_APPLY_ENTRY(f32, float, false)
-ROQ_APPLY_ENTRY(f64, double, false)
-ROQ_APPLY_ENTRY(c64, float, true)
-ROQ_APPLY_ENTRY(c128, double, true)
+ROQ_APPLY_ENTRY(roq_apply_f32, float, false)
+ROQ_APPLY_ENTRY(roq_apply_f64, double, false)
+ROQ_APPLY_ENTRY(roq_apply_c64, float, true)
+ROQ_APPLY_ENTRY(roq_apply_c128, double, true)

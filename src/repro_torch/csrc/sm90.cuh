@@ -74,6 +74,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// `bytes` contiguous bytes of global memory into shared memory, arriving on
+// `bar`; both addresses 16-byte aligned and `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Named barrier `id` over `n` threads (id 0 is __syncthreads').
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");

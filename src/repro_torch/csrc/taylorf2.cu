@@ -31,13 +31,15 @@
 // tree.  Nothing depends on the tile's width, its first column or the
 // output's row stride.
 //
-// Bound on the H100: the bytes written.  A (10,000 x 65,536) complex64
-// tile writes 5.2 GB (1.57 ms at 3.35 TB/s); the function's float64
-// operations, one evaluation of each element (25 operations of our own and
-// a sincos, ops.py::FLOPS_PER_ELEMENT) plus its norm and scaling, take
-// 1.37 ms at 34 TFLOP/s.  This design evaluates every element of a
-// normalized tile twice (the norm pass, then the scaled store) instead of
-// reading the tile back, which doubles its operations.  What it does:
+// This is the general route; csrc/taylorf2_sm90.cu (one evaluation an
+// element, the columns held across a cluster) takes every N whose slab
+// fits in shared memory.  Bound on the H100: the float64 instruction
+// issue.  A (10,000 x 65,536) complex64 tile writes 5.2 GB (1.57 ms at
+// 3.35 TB/s); one evaluation of each element and its norm issue 49
+// float64 instructions (ops.py::f64_instructions), 1.89 ms at 17 T a
+// second.  This design evaluates every element of a normalized tile twice
+// (the norm pass, then the scaled store) instead of reading the tile back,
+// which doubles its operations.  What it does:
 //   * no transcendental but the sincos per element: the powers and logs
 //     are row or column terms;
 //   * a warp writes one row's 32 neighbouring columns: 256 contiguous
@@ -45,6 +47,7 @@
 //   * the row terms are read as warp-wide broadcasts from L2 (4 N doubles
 //     for the whole tile), the column terms once per thread.
 #include "common.cuh"
+#include "taylorf2.cuh"
 
 namespace {
 
@@ -52,63 +55,16 @@ constexpr int COLS = 32;
 constexpr int WARPS = 8;
 constexpr int THREADS = COLS * WARPS;
 
-// the constants of gw/waveform.py, evaluated the same way
-constexpr double A3 = -16.0 * 3.141592653589793;
-constexpr double K6 = 6.0 * 6848.0 / 63.0;
-constexpr double PHASE0 = -3.141592653589793 / 4.0;
+using repro::tf2::ColTerms;
+using repro::tf2::store;
+using repro::tf2::stored_sq;
 
-struct ColTerms {
-  double vM, pre, lpm3, a2, a4, a5, a6, a7;
-};
-
+// one element from its row terms (rows: f13, inv_f53, log_f_3, amp)
 __device__ __forceinline__ void element(const ColTerms& c, const double* rows,
                                         long long N, long long n, double& re,
                                         double& im) {
-  const double f13 = rows[n];  // rows: f13, inv_f53, log_f_3, amp
-  const double inv_f53 = rows[N + n];
-  const double lf3 = rows[2 * N + n];
-  const double amp = rows[3 * N + n];
-  const double v = __dmul_rn(c.vM, f13);
-  const double lv = __dadd_rn(c.lpm3, lf3);
-  const double a5 = __dmul_rn(c.a5, __dadd_rn(1.0, __dmul_rn(3.0, lv)));
-  const double a6 = __dsub_rn(c.a6, __dmul_rn(K6, lv));
-  double s = __dadd_rn(a6, __dmul_rn(v, c.a7));
-  s = __dadd_rn(a5, __dmul_rn(v, s));
-  s = __dadd_rn(c.a4, __dmul_rn(v, s));
-  s = __dadd_rn(A3, __dmul_rn(v, s));
-  s = __dadd_rn(c.a2, __dmul_rn(v, s));
-  s = __dadd_rn(1.0, __dmul_rn(__dmul_rn(v, v), s));
-  const double psi =
-      __dadd_rn(__dmul_rn(__dmul_rn(c.pre, inv_f53), s), PHASE0);
-  double sn, cs;
-  sincos(psi, &sn, &cs);
-  re = __dmul_rn(amp, cs);
-  im = __dmul_rn(amp, sn);
-}
-
-__device__ __forceinline__ void store(float2* p, double re, double im,
-                                      float scale, bool scaled) {
-  float x = __double2float_rn(re), y = __double2float_rn(im);
-  if (scaled) {
-    x = __fmul_rn(x, scale);
-    y = __fmul_rn(y, scale);
-  }
-  *p = make_float2(x, y);
-}
-__device__ __forceinline__ void store(double2* p, double re, double im,
-                                      double scale, bool scaled) {
-  if (scaled) {
-    re = __dmul_rn(re, scale);
-    im = __dmul_rn(im, scale);
-  }
-  *p = make_double2(re, im);
-}
-
-// |h|^2 of the value as stored (rounded to R), in float64
-template <typename R>
-__device__ __forceinline__ double stored_sq(double re, double im) {
-  const double x = (double)(R)re, y = (double)(R)im;
-  return __dadd_rn(__dmul_rn(x, x), __dmul_rn(y, y));
+  repro::tf2::element(c, rows[n], rows[N + n], rows[2 * N + n],
+                      rows[3 * N + n], re, im);
 }
 
 template <typename R>
@@ -172,14 +128,12 @@ int launch(const void* rows, const void* cols, long long N, long long M,
 
 }  // namespace
 
-#define TAYLORF2_ENTRY(SFX, R)                                               \
-  extern "C" int taylorf2_tile_##SFX(const void* rows, const void* cols,     \
-                                     long long N, long long M, long long lo, \
-                                     long long w, long long ld,              \
-                                     int normalize, void* out,               \
-                                     void* stream) {                         \
+#define TAYLORF2_ENTRY(NAME, R)                                              \
+  extern "C" int NAME(const void* rows, const void* cols, long long N,       \
+                      long long M, long long lo, long long w, long long ld,  \
+                      int normalize, void* out, void* stream) {              \
     return launch<R>(rows, cols, N, M, lo, w, ld, normalize, out, stream);   \
   }
 
-TAYLORF2_ENTRY(c64, float)
-TAYLORF2_ENTRY(c128, double)
+TAYLORF2_ENTRY(taylorf2_tile_c64, float)
+TAYLORF2_ENTRY(taylorf2_tile_c128, double)

@@ -57,8 +57,9 @@ Bitwise contract (load-bearing for the tests and the multi-basis
 service): padded-bucket evaluation is bit-identical to the unpadded direct
 evaluation of the same requests.  Every apply ``B @ F`` goes through
 :func:`repro_torch.kernels.roq_apply.ops.roq_apply`: on the card a
-hand-written kernel whose threads each sum one output element over k in a
-fixed order, so a column's bits never depend on the batch width (cuBLAS
+hand-written kernel (two routes of the same bits) that sums each output
+element over k in one fixed order, so a column's bits never depend on the
+batch width (cuBLAS
 makes no such promise, and at complex128 breaks it); on the CPU
 ``torch.matmul``, whose columns keep their bits across widths with the
 BLAS PyTorch ships.  Complex stays native (interleaved), not plane-split.

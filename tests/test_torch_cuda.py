@@ -727,8 +727,8 @@ def test_roq_apply_kernel_matches_plain(cuda, dtype, shape):
 def test_roq_apply_bucket_contract(cuda, dtype, N, k):
     """The serving contract on the card: a column's bits do not depend on
     the batch width, for every width 1..128 (the buckets 2..128 and every
-    unpadded direct width), and the engine's padded cache evaluation is
-    bitwise the direct one."""
+    unpadded direct width), on either route, and the engine's padded cache
+    evaluation is bitwise the direct one."""
     from repro_torch.core.eim import EIMResult
     from repro_torch.serving import InterpolantCache, direct_interpolate
 
@@ -736,9 +736,10 @@ def test_roq_apply_bucket_contract(cuda, dtype, N, k):
     B = _rand(gen, (N, k), dtype, cuda)
     F = _rand(gen, (k, 128), dtype, cuda)
     full = ra_ops.roq_apply(B, F)
-    for b in range(1, 129):
-        out = ra_ops.roq_apply(B, F[:, :b].contiguous())
-        assert torch.equal(out, full[:, :b]), b
+    for fn in (ra_ops.roq_apply, ra_ops._roq_apply_general):
+        for b in range(1, 129):
+            out = fn(B, F[:, :b].contiguous())
+            assert torch.equal(out, full[:, :b]), (fn.__name__, b)
     eim = EIMResult(nodes=torch.arange(k, device=cuda), B=B)
     cache = InterpolantCache()
     for width in (1, 2, 3, 7, 31, 64, 100):
@@ -758,6 +759,52 @@ def test_roq_apply_wrapper_rejects_bad_arguments(cuda):
         ra_ops.roq_apply(B, torch.zeros((4, 2), device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         ra_ops.roq_apply(B, torch.zeros((2, 3), device=cuda).mT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,k", [(10000, 83), (120, 8)])
+def test_roq_apply_sm90_is_bitwise_the_general_kernel(cuda, dtype, N, k):
+    """At every width 1..128 the sm90 kernel (panels in shared memory, a
+    register tile a thread) gives the general kernel's bits: both sum an
+    output over j in order with the same multiply-adds; each call on the
+    route it names."""
+    gen = torch.Generator().manual_seed(12)
+    B = _rand(gen, (N, k), dtype, cuda)
+    F = _rand(gen, (k, 128), dtype, cuda)
+    for b in range(1, 129):
+        Fb = F[:, :b].contiguous()
+        assert ra_ops.kernel_route(dtype, k, b) == "sm90"
+        n0 = (ra_ops.launches_sm90, ra_ops.launches_general)
+        got = ra_ops.roq_apply(B, Fb)
+        want = ra_ops._roq_apply_general(B, Fb)
+        torch.cuda.synchronize()
+        assert (ra_ops.launches_sm90, ra_ops.launches_general) == (
+            n0[0] + 1, n0[1] + 1)
+        assert torch.equal(got, want), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_roq_apply_contract_across_the_route_switch(cuda, dtype):
+    """With k so large that F stops fitting in shared memory inside widths
+    1..128, the route switches with the width, and a column keeps its bits
+    across the switch; a B off 16-byte alignment (a view one element in:
+    f32, c64, f64) gives the same bits on the sm90 kernel."""
+    isz = dtype.itemsize
+    k = -(-ra_ops.SMEM_BUDGET // (64 * isz))   # F overflows near width 64
+    routes = [ra_ops.kernel_route(dtype, k, b) for b in range(1, 129)]
+    assert routes[0] == "sm90" and routes[-1] == "general"
+    gen = torch.Generator().manual_seed(13)
+    Bx = _rand(gen, (301, k), dtype, cuda)
+    F = _rand(gen, (k, 128), dtype, cuda)
+    full = ra_ops._roq_apply_general(Bx, F)
+    for b in range(1, 129):
+        assert torch.equal(ra_ops.roq_apply(Bx, F[:, :b].contiguous()),
+                           full[:, :b]), b
+    B = Bx.view(-1)[1:1 + 300 * k].view(300, k)
+    want = ra_ops._roq_apply_general(B, F[:, :3].contiguous())
+    assert torch.equal(ra_ops.roq_apply(B, F[:, :3].contiguous()), want)
 
 
 # --------------------------------------------- the paper's oracles ------
@@ -869,6 +916,77 @@ def test_taylorf2_tile_matches_plain(cuda, shape, dtype, normalize):
     assert torch.equal(wide[:, 5:4 + M], full[:, 1:])
     assert bool((wide[:, :5] == 0).all()) and bool((wide[:, 4 + M:] == 0)
                                                     .all())
+
+
+def _general_n(dtype):
+    """The least multiple of 10,000 rows whose slab overflows the sm90
+    generator's shared memory: the general kernel's N."""
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
+
+    n = 10_000
+    while tf_ops.kernel_route(n, dtype) == "sm90":
+        n += 10_000
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("route", ["sm90", "general", "forced_general"])
+def test_taylorf2_routes_match_plain(cuda, route, dtype, normalize):
+    """Each kernel against the plain version within 10 eps sqrt(N) of the
+    column norm: N 2,000 on the sm90 route, an N whose slab overflows it on
+    the general route, and the general kernel forced at N 2,000; one launch
+    on the route named; unnormalized, the sm90 kernel has the general
+    kernel's bits (the same float64 operations an element)."""
+    from repro_torch.gw import WaveformGrid
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
+    from repro_torch.kernels.taylorf2.ref import taylorf2_tile_ref
+
+    n = _general_n(dtype) if route == "general" else 2000
+    g = WaveformGrid(*_grid(n, 10, 3), dtype=dtype, normalize=normalize,
+                     device=cuda)
+    N, M = g.shape
+    forced = route == "forced_general"
+    want = "general" if forced else route
+    assert forced or tf_ops.kernel_route(N, dtype) == route
+    fn = tf_ops._taylorf2_tile_general if forced else tf_ops.taylorf2_tile
+    n0 = getattr(tf_ops, f"launches_{want}")
+    got = fn(g.rows, g.cols, 0, M, normalize, dtype)
+    torch.cuda.synchronize()
+    assert getattr(tf_ops, f"launches_{want}") == n0 + 1
+    ref = taylorf2_tile_ref(g.rows, g.cols, normalize, dtype)
+    tol = _tol(dtype, N) * float(torch.linalg.vector_norm(ref, dim=0).max())
+    assert float((got - ref).abs().max()) <= tol
+    if not normalize and want == "sm90":
+        assert torch.equal(got, tf_ops._taylorf2_tile_general(
+            g.rows, g.cols, 0, M, False, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("big", [False, True])
+def test_taylorf2_column_bits_independent_of_the_tile(cuda, big, dtype,
+                                                      normalize):
+    """On either route a column has the bits of any tile that holds it:
+    ragged widths (1, 7, 13, 33, 100), first columns off a multiple of the
+    cluster's columns (1, 5, 13), and tiles written into a column slice of
+    a wider matrix (a row stride that is not the tile's width)."""
+    from repro_torch.gw import WaveformGrid
+
+    g = WaveformGrid(*_grid(_general_n(dtype) if big else 1000, 20, 6),
+                     dtype=dtype, normalize=normalize, device=cuda)
+    N, M = g.shape
+    full = g.tile(0, M)
+    for lo, w in ((1, 7), (5, 33), (13, 1), (13, 100), (M - 13, 13),
+                  (0, M - 1)):
+        assert torch.equal(g.tile(lo, lo + w), full[:, lo:lo + w]), (lo, w)
+        wide = torch.zeros((N, M + 11), dtype=dtype, device=cuda)
+        g.tile(lo, lo + w, out=wide[:, 3:3 + w])
+        assert torch.equal(wide[:, 3:3 + w], full[:, lo:lo + w]), (lo, w)
+        assert bool((wide[:, :3] == 0).all())
+        assert bool((wide[:, 3 + w:] == 0).all())
 
 
 @pytest.mark.cuda

@@ -31,6 +31,8 @@ from repro_torch.kernels.imgs_panel import ops as pp_ops
 from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 from repro_torch.kernels.imgs_project import ops as ip_ops
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
+from repro_torch.kernels.roq_apply import ops as ra_ops
+from repro_torch.kernels.taylorf2 import ops as tf_ops
 
 LOW = [np.float32, np.complex64]
 HIGH = [np.float64, np.complex128]
@@ -353,7 +355,8 @@ def _exported(name: str) -> set:
 
 @pytest.mark.parametrize("module", ["greedy_update", "imgs_panel",
                                     "imgs_project", "block_sweep",
-                                    "flash_attention"])
+                                    "flash_attention", "roq_apply",
+                                    "taylorf2"])
 def test_bound_entries_are_exported(module):
     """Every C entry a wrapper binds through ctypes is exported by the
     source it loads: a renamed entry fails here, not at first use on the
@@ -487,3 +490,138 @@ def test_imgs_project_plan_of_the_greedy_path():
     # N past what 132 slabs hold: two chunks a CTA
     rows, ctas, T = ip_ops.plan(40_001, 100, 8, 132)
     assert ctas == 132 and T < rows <= 2 * T
+
+
+# ------------------------------- roq_apply and taylorf2_tile routes ----
+def _roq_tiles() -> set:
+    """The (rr, cc) register tiles csrc/roq_apply_sm90.cu is built for."""
+    import re
+    src = (_build.CSRC / "roq_apply_sm90.cu").read_text()
+    return {(int(a), int(b))
+            for a, b in re.findall(r"^  ROQ_TILE\((\d+), (\d+)\)$", src, re.M)}
+
+
+ROQ_TILES = _roq_tiles()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64, torch.complex128])
+@pytest.mark.parametrize("k", [1, 8, 83, 500, 908, 4000])
+@pytest.mark.parametrize("nb", [1, 2, 7, 62, 64, 128])
+def test_roq_apply_kernel_route_rule(dtype, k, nb):
+    """The sm90 kernel takes every (k, nb) whose F and one row of B fit in
+    its shared memory, whatever N; its plan stays within that room and
+    MAX_THREADS, its register tile is one the kernel is built for, and its
+    tiles cover every column of out.  k 908 puts nb 62 a row or two from
+    the room's edge."""
+    isz = dtype.itemsize
+    fits = ra_ops.smem_bytes(k, nb, 1, isz) <= ra_ops.SMEM_BUDGET
+    assert ra_ops.kernel_route(dtype, k, nb) == ("sm90" if fits
+                                                 else "general")
+    for N in (1, 17, 10_000, 100_001):
+        p = ra_ops.plan(N, k, nb, isz, 132)
+        assert (p is not None) == fits
+        if p is None:
+            continue
+        rr, cc, tx, ty = p
+        assert (rr, cc) in ROQ_TILES
+        assert tx * cc >= nb > (tx - 1) * cc
+        assert 1 <= tx * ty <= ra_ops.MAX_THREADS
+        assert ra_ops.smem_bytes(k, nb, rr * ty, isz) <= ra_ops.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64, torch.complex128])
+def test_roq_apply_plans_near_the_room_edge(dtype):
+    """With k such that F overflows shared memory near width 64 (the card
+    test's route switch), every width the sm90 kernel takes gets a tile it
+    is built for, within the room, however few rows of B still fit."""
+    isz = dtype.itemsize
+    k = -(-ra_ops.SMEM_BUDGET // (64 * isz))
+    widths = [nb for nb in range(1, 129)
+              if ra_ops.kernel_route(dtype, k, nb) == "sm90"]
+    assert widths == list(range(1, widths[-1] + 1)) and widths[-1] < 128
+    for nb in widths:
+        rr, cc, tx, ty = ra_ops.plan(301, k, nb, isz, 132)
+        assert (rr, cc) in ROQ_TILES, (nb, rr, cc)
+        assert ra_ops.smem_bytes(k, nb, rr * ty, isz) <= ra_ops.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_roq_apply_plan_of_the_serving_path(dtype):
+    """At the GW basis (N 10,000, k 83) every bucket spreads over the 132
+    SMs, one CTA of 76 rows each up to bucket 16, at most two a SM above;
+    F overflows shared
+    memory only past width 174 in complex128 and 349 in complex64."""
+    for nb in (1, 2, 4, 8, 16, 32, 64, 128):
+        assert ra_ops.kernel_route(dtype, 83, nb) == "sm90"
+        rr, cc, tx, ty = ra_ops.plan(10_000, 83, nb, dtype.itemsize, 132)
+        ctas = -(-10_000 // (rr * ty))
+        assert 132 <= ctas <= 2 * 132
+        if nb <= 16:
+            assert rr * ty == 76 and ctas == 132
+    limit = {torch.complex64: 349, torch.complex128: 174}[dtype]
+    assert ra_ops.kernel_route(dtype, 83, limit) == "sm90"
+    assert ra_ops.kernel_route(dtype, 83, limit + 1) == "general"
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("N", [1, 17, 1000, 10_000, 14_000, 20_000, 40_000,
+                               100_000])
+def test_taylorf2_kernel_route_rule(dtype, N):
+    """The generator's route and plan are functions of (N, dtype) alone:
+    the sm90 kernel wherever its slab of ceil(N / G) rows x C columns fits
+    in a CTA's shared memory, the general one elsewhere; the plan's CTAs
+    cover N and its columns divide a CTA's threads."""
+    import inspect
+
+    for fn in (tf_ops.kernel_route, tf_ops.plan):
+        assert list(inspect.signature(fn).parameters) == ["N", "dtype"]
+    fits = tf_ops.smem_bytes(N, dtype) <= tf_ops.SMEM_BUDGET
+    assert tf_ops.kernel_route(N, dtype) == ("sm90" if fits else "general")
+    p = tf_ops.plan(N, dtype)
+    assert (p is not None) == fits
+    if p is not None:
+        G, rows_cta = p
+        assert G == tf_ops.CLUSTER == 8
+        assert (rows_cta - 1) * G < max(N, 1) <= rows_cta * G
+        for normalize in (True, False):
+            C, unroll = tf_ops.LAUNCH[dtype, normalize]
+            assert C <= 32 and tf_ops.THREADS % C == 0 and unroll in (1, 2)
+
+
+def test_taylorf2_routes_of_the_gw_paths():
+    """The paper's N = 10,000 takes the sm90 generator in both output
+    types; a much longer frequency grid overflows its slab."""
+    for dtype in (torch.complex64, torch.complex128):
+        assert tf_ops.kernel_route(10_000, dtype) == "sm90"
+        assert tf_ops.kernel_route(1_000_000, dtype) == "general"
+
+
+def test_new_routes_take_plain_version_on_cpu(rng):
+    """On CPU tensors both entries of roq_apply and of taylorf2_tile are
+    the plain versions bit for bit, and launch nothing."""
+    from repro_torch.gw import WaveformGrid, chirp_grid, frequency_grid
+    from repro_torch.gw.waveform import taylorf2_from_terms
+    from repro_torch.kernels.roq_apply.ref import roq_apply_ref
+
+    counts = (ra_ops.launches, ra_ops.launches_sm90,
+              ra_ops.launches_general, tf_ops.launches,
+              tf_ops.launches_sm90, tf_ops.launches_general)
+    for dtype in (np.float32, np.complex64, np.float64, np.complex128):
+        B, F = _torch(_mk(rng, (30, 7), dtype), _mk(rng, (7, 5), dtype))
+        for fn in (ra_ops.roq_apply, ra_ops._roq_apply_general):
+            assert torch.equal(fn(B, F), roq_apply_ref(B, F))
+            assert torch.equal(fn(B, F), B @ F)
+    g = WaveformGrid(frequency_grid(40.0, 1024.0, 50),
+                     *chirp_grid(n_mc=4, n_eta=3), device="cpu")
+    for normalize in (True, False):
+        for dtype in (torch.complex64, torch.complex128):
+            want = taylorf2_from_terms(g.rows, g.cols[:, 2:9], normalize,
+                                       dtype)
+            for fn in (tf_ops.taylorf2_tile, tf_ops._taylorf2_tile_general):
+                assert torch.equal(
+                    fn(g.rows, g.cols, 2, 9, normalize, dtype), want)
+    assert (ra_ops.launches, ra_ops.launches_sm90,
+            ra_ops.launches_general, tf_ops.launches,
+            tf_ops.launches_sm90, tf_ops.launches_general) == counts
