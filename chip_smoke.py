@@ -6,7 +6,8 @@ Drives the port's two build paths at the GW workload's full width
 (N = 10,000 frequencies, complex64, max_k = 100, M = 131,072 TaylorF2
 snapshots: 10.5 GB of S on the card) — the paper's RB-greedy build, then
 the artifact and the ROQ online stage, then the blocked build
-(``strategy="block_greedy"``, block_p = 8) — then the dense-LM serving path
+(``strategy="block_greedy"``, block_p = 8), the streamed and randomized
+builds up to the paper's M = 3,276,800 — then the dense-LM serving path
 (granite-3-8b at full width, its prefill attention in the flash kernel),
 and holds each hand-written kernel against its plain PyTorch version.  Phases, each one JSON line:
 
@@ -26,7 +27,14 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              the plain version and the one-call library yardstick (CUDA
              events, best of n, the card's time alone: the host has issued
              a call before the card reaches it), with the routes of a
-             wrapper timed in turns, and the bound
+             wrapper timed in turns, and the bound; sketch_omega at the
+             randomized path's block (65,536 x 110 complex64, both kinds)
+             and at 288 ragged cases (m 1 / 7 / 4,097, ell 1 / 25, the four
+             types, seeds 0 / 7 / 2^40 + 3, tiles 0 / 49): rademacher
+             bitwise, gaussian within 1e-5 (float32) / 1e-10 (float64) of
+             max(1, |omega|), two launches bitwise; the fold and co-range
+             GEMMs of one paper tile, the column norms, the SVD and the thin
+             QRs a pass runs
   snapshots  generation of S on the card, every taylorf2_tile launch on the
              sm90 route
   build_basis  the full-width greedy build through the front door;
@@ -46,6 +54,15 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              scan and the reconstruction on the sm90 route; then MGS through
              the front door on the full-width S (max_k 100): its wall beside
              the greedy build's, its peak memory, its sampled error
+  randomized_cut  the range-finder on the same complex128 cut (max_k 100,
+             sketch_p 10, 512-column tiles), power 0 and 1 within the
+             reference test's bound on POD's tail, power 1's leading ten
+             estimates within 1e-3 of POD's sigma, one sketch_omega launch a
+             tile; sketch+greedy on the cut from a power-0 sketch with no
+             oversampling (k0 94 of max_k 100): launches counted from 0
+             just before it, at least one refinement sweep, one
+             greedy_update launch a tile a sweep and every imgs_project
+             launch on the sm90 route, every column within tau
   roq_serve  the full-width greedy basis and the cut's greedy basis saved
              as artifacts and served by launch.serve's basis mode (4,096
              requests, max_batch 64, max_wait 2 ms), launches counted from 0
@@ -68,6 +85,15 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              never formed), stepwise then block_p 8; every generator launch
              on the sm90 route, one generation of each tile a pass; the
              stepwise basis sampled within 100 tau
+  randomized_resume  a sketch over generated tiles at M 131,072 killed
+             mid-pass (phase 0 at power 0, the odd phase at power 1) and
+             resumed: Y, sigma_hat, k, Q and the norms bitwise
+  randomized_paper, randomized_paper_sketch_greedy  the paper's M through
+             strategy="randomized" at power 0 and 1 (launches counted from
+             0 just before each: sketch_omega once a tile, taylorf2_tile
+             once a tile a pass, all sm90), then strategy="sketch+greedy"
+             with tau between power 0's 90th and 91st estimates; the
+             sampled error of each basis, the last within 100 tau
 
   lm_kernels  flash_attention's two kernels vs the plain version at the
              serve path's shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16,
@@ -132,11 +158,33 @@ N_MC_PAPER = 12_800
 STREAM_TILE = 65_536
 PARITY_TILES = (16_384, 24_576)
 HOST_STRIDE, HOST_TILE = 8, 4_096
+# The randomized cells: the GW config's max_k plus the reference's default
+# oversampling (ell 110); the range-finder on the paper phase's cut in
+# 512-column tiles; the cut's sketch+greedy tau, for a power-0 sketch with
+# no oversampling (ell = max_k 100): its estimates take k0 = 94 (5.0e-9 and
+# 1.5e-9 the 94th and 95th, on the H100) while its 94-column basis leaves a
+# column at 4.6e-9, so the refinement has work (the run prints all three);
+# the resume check's tiling at the resident M; the sketch's k0 in the
+# paper-size sketch+greedy run.
+SKETCH_P = 10
+SKETCH_ELL = MAX_K + SKETCH_P
+CUT_TILE = 512
+CUT_SG_TAU = 2.7e-9
+RESUME_TILE = 16_384
+SG_K0 = 90
+OMEGA_SEEDS = [0, 7, 2 ** 40 + 3]
+# a gaussian block against its plain version, relative to max(1, |omega|):
+# only erfinv differs (CUDA's against PyTorch's)
+OMEGA_TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
 FP64_FLOPS = 34e12                # H100 SXM, float64 outside tensor cores
 BF16_FLOPS = 989e12               # H100 SXM, bf16 / f16 tensor cores, dense
+# integer ALU instructions: 64 an SM a clock (CUDA's throughput table for
+# compute capability 9.0), 132 SMs, 1.98 GHz (the clock of the data
+# sheet's FP64 rate, which has 64 lanes an SM too)
+INT32_INSTR_PER_S = 132 * 64 * 1.98e9
 # The serving cell: granite-3-8b at full width, 4 requests of 2048-token
 # prompts, 32 new tokens each (the KV cache holds prompt + new tokens).
 LM_ARCH = "granite-3-8b"
@@ -1515,7 +1563,8 @@ def streamed_phase(S, resident, f, m1, m2, dev) -> None:
 
 def paper_streamed(dev, f, smi, reset_counts, read_counts, tf_ms):
     """The paper's M through the front door: stepwise, then block_p 8.
-    Returns each build's launches, by block_p.
+    Returns each build's launches, by block_p, and the stepwise basis's
+    sampled error.
 
     The stepwise basis must be usable: its sampled error within 100 tau
     (complex64's rank guard ends it short of tau).  The blocked build on
@@ -1610,9 +1659,428 @@ def paper_streamed(dev, f, smi, reset_counts, read_counts, tf_ms):
              usable_err_bound=100 * TAU, usable=usable, peak_mem_gb=peak / 1e9,
              peak_mem_bound_gb=mem_bound / 1e9, nvidia_smi=smi)
         out[p] = launches
+        if p == 1:
+            stepwise_err = pce
         del b
         torch.cuda.empty_cache()
-    return out
+    return out, stepwise_err
+
+
+# ------------------------------------------------ the randomized cells ----
+def check_sketch_omega(seed, tile, shape, dtype, kind, dev) -> float:
+    """The generator kernel against its plain version on the card: one
+    launch a call, two launches bitwise, rademacher bitwise, gaussian
+    within OMEGA_TOL of max(1, |omega|) (only erfinv differs).  Returns
+    the max abs error."""
+    from repro_torch.kernels.sketch_omega import ops as so_ops
+    from repro_torch.kernels.sketch_omega.ref import sketch_omega_ref
+
+    what = f"sketch_omega {shape} {dtype} {kind} seed {seed} tile {tile}"
+    n0 = so_ops.launches
+    out = so_ops.sketch_omega(seed, tile, torch.empty(
+        shape, dtype=dtype, device=dev), kind)
+    again = so_ops.sketch_omega(seed, tile, torch.empty_like(out), kind)
+    torch.cuda.synchronize()
+    check(so_ops.launches == n0 + 2, f"{what}: not one launch a call")
+    check(torch.equal(out, again), f"{what}: two launches differ")
+    ref = sketch_omega_ref(seed, tile, shape, dtype, kind, dev)
+    if kind == "rademacher":
+        check(torch.equal(out, ref), f"{what}: not bitwise the plain "
+              "version")
+        return 0.0
+    rel = float(((out - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    check(rel <= OMEGA_TOL[dtype.to_real()],
+          f"{what}: {rel} > {OMEGA_TOL[dtype.to_real()]} relative")
+    return float((out - ref).abs().max())
+
+
+def sketch_omega_phase(S, dev) -> dict:
+    """sketch_omega against its plain version at the randomized path's
+    shape (65,536 x 110 complex64, both kinds) and at ragged shapes across
+    the four types, seeds and tiles; its time beside the plain version's
+    and the bound; then the fold and the co-range GEMMs of one paper tile
+    (torch.matmul) beside their bound.  Returns the kernels-line entry."""
+    from repro_torch.kernels.sketch_omega import ops as so_ops
+    from repro_torch.kernels.sketch_omega.ref import sketch_omega_ref
+
+    pairs = [(seed, tile) for seed in OMEGA_SEEDS for tile in (0, 49)]
+    n_checks = 0
+    for m in (1, 7, 4_097):
+        for ell in (1, 25):
+            for dtype in (torch.float32, torch.float64, torch.complex64,
+                          torch.complex128):
+                for seed, tile in pairs:
+                    for kind in ("gaussian", "rademacher"):
+                        check_sketch_omega(seed, tile, (m, ell), dtype, kind,
+                                           dev)
+                        n_checks += 1
+    shape = (STREAM_TILE, SKETCH_ELL)
+    errs = {"gaussian": 0.0, "rademacher": 0.0}
+    for seed, tile in pairs:
+        for kind in errs:
+            errs[kind] = max(errs[kind], check_sketch_omega(
+                seed, tile, shape, torch.complex64, kind, dev))
+    emit("kernels", kernel="sketch_omega", check="vs_plain",
+         ragged_checks=n_checks, path_shape=list(shape),
+         path_max_abs_err=errs, rel_tol={str(k): v for k, v in
+                                         OMEGA_TOL.items()},
+         seeds=OMEGA_SEEDS, tiles=[0, 49])
+
+    out = torch.empty(shape, dtype=torch.complex64, device=dev)
+    draws = 2 * out.numel()  # a Threefry evaluation each
+    entry = None
+    for kind in ("gaussian", "rademacher"):
+        # operations: the integer-ALU operations the draws need
+        alu = draws * so_ops.ALU_OPS_PER_DRAW[kind]
+        t = timed("sketch_omega", list(shape), torch.complex64, out.nbytes,
+                  alu, errs[kind], 50,
+                  lambda: so_ops.sketch_omega(SEED, 0, out, kind),
+                  lambda: sketch_omega_ref(SEED, 0, shape, torch.complex64,
+                                           kind, dev),
+                  None, flops_per_s=INT32_INSTR_PER_S)
+        emit("kernels", kernel="sketch_omega", kind=kind,
+             threefry_calls=draws, alu_ops=alu,
+             bound_share=t["bound_ms"] / t["ms"])
+        if entry is None:
+            entry = t
+
+    # the fold Y + T @ Omega and the co-range T^H @ Y of one paper tile:
+    # plain GEMMs (torch.addmm / matmul), bound by the FP32 rate
+    T = S[:, :STREAM_TILE].contiguous()
+    Om = so_ops.sketch_omega(SEED, 0, out, "gaussian")
+    Y = torch.zeros((N, SKETCH_ELL), dtype=torch.complex64, device=dev)
+    flops = 8 * N * STREAM_TILE * SKETCH_ELL
+    for name, fn in (("sketch_fold", lambda: torch.addmm(Y, T, Om)),
+                     ("sketch_project", lambda: T.mH @ Y)):
+        ms = time_ms(fn, 10)
+        b = bound(T.nbytes + Om.nbytes + 2 * Y.nbytes, flops)
+        emit("kernels", check=name, library="torch.addmm" if name ==
+             "sketch_fold" else "torch.matmul", shape=[N, STREAM_TILE,
+                                                     SKETCH_ELL],
+             dtype="complex64", ms=ms, bound_ms=b[0], bound_by=b[1],
+             bound_share=b[0] / ms, tflop_s=flops / (ms * 1e-3) / 1e12)
+    # the rest of a pass: a tile's fixed-order column norms (phase 0), the
+    # final SVD of Y, and the power iteration's thin QRs of Y and of the
+    # paper-size co-range Z (M 3,276,800 x ell)
+    from repro_torch.core.randomized import _thin_q
+    from repro_torch.sums import column_norms_sq
+
+    Mp = N_MC_PAPER * N_ETA
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    Z = torch.randn((Mp, SKETCH_ELL), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    Y = torch.randn((N, SKETCH_ELL), dtype=torch.complex64, device=dev,
+                    generator=gen)
+    rest = {"column_norms_sq_tile": time_ms(lambda: column_norms_sq(T), 5),
+            "svd_Y": time_ms(lambda: torch.linalg.svd(
+                Y, full_matrices=False), 5),
+            "thin_qr_Y": time_ms(lambda: _thin_q(Y), 5),
+            "thin_qr_Z": time_ms(lambda: _thin_q(Z), 3)}
+    emit("kernels", check="sketch_pass_parts", tile=[N, STREAM_TILE],
+         Y=[N, SKETCH_ELL], Z=[Mp, SKETCH_ELL], dtype="complex64",
+         ms=rest)
+    del T, Om, Y, Z, out
+    torch.cuda.empty_cache()
+    return entry
+
+
+def randomized_cut_phase(f, m1, m2, dev, smi, reset_counts, read_counts):
+    """The range-finder on the paper phase's complex128 cut (N 10,000, every
+    64th column, M 2,048), POD from the ported oracle: power 0 and 1 within
+    the reference test's bound (slack 4 on sqrt(1 + k/(p-1)) times POD's
+    tail, plus 100 eps |sigma|), power 1's leading ten estimates within
+    1e-3 of POD's sigma, one sketch_omega launch a tile; then sketch+greedy
+    from a power-0 sketch with no oversampling, whose basis misses tau, so
+    the warm-started greedy refines it (one greedy_update launch a tile a
+    sweep, all sm90) until every column is within tau.  Returns the
+    sketch+greedy run's launches."""
+    from repro_torch.api import build_basis
+    from repro_torch.core.errors import per_column_errors
+    from repro_torch.core.pod import pod
+    from repro_torch.core.randomized import rb_randomized_streamed
+    from repro_torch.gw import build_snapshot_matrix
+
+    S1 = build_snapshot_matrix(f, m1[::CUT_STRIDE], m2[::CUT_STRIDE],
+                               dtype=torch.complex128, device=dev)
+    Mc = S1.shape[1]
+    sig = pod(S1, 0.0, device=dev).sigmas.cpu().numpy()
+    tail = float(np.sqrt(np.sum(sig[MAX_K:] ** 2)))
+    eps = float(np.finfo(np.float64).eps)
+    floor = 100.0 * eps * float(np.linalg.norm(sig))
+    bound_rf = math.sqrt(1.0 + MAX_K / (SKETCH_P - 1)) * tail
+    n_tiles = -(-Mc // CUT_TILE)
+    runs = []
+    for power in (0, 1):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rb_randomized_streamed(S1, tau=None, max_k=MAX_K,
+                                     sketch_p=SKETCH_P, power=power,
+                                     seed=SEED, tile_m=CUT_TILE, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        check(res.k == MAX_K and res.ell == MAX_K + SKETCH_P
+              and res.n_passes == 1 + 2 * power and res.n_tiles == n_tiles,
+              f"randomized_cut power {power}: k {res.k} ell {res.ell} "
+              f"passes {res.n_passes} tiles {res.n_tiles}")
+        check(launches["sketch_omega"] == n_tiles,
+              f"randomized_cut power {power}: {launches['sketch_omega']} "
+              f"sketch_omega launches for {n_tiles} tiles")
+        err = float(torch.linalg.matrix_norm(
+            S1 - res.Q @ (res.Q.mH @ S1)))
+        check(err <= 4.0 * bound_rf + floor,
+              f"randomized_cut power {power}: error {err} > 4 x "
+              f"{bound_rf} + {floor}")
+        lead = np.abs(res.svals[:10] - sig[:10]) / sig[:10]
+        if power == 1:
+            check(float(lead.max()) <= 1e-3,
+                  f"randomized_cut power 1: sigma_hat off by {lead.max()}")
+        runs.append({"power": power, "k": res.k, "ell": res.ell,
+                     "passes": res.n_passes, "wall_s": wall,
+                     "err_fro": err, "bound": 4.0 * bound_rf + floor,
+                     "err_over_pod_tail": err / tail,
+                     "lead10_max_rel_err": float(lead.max()),
+                     "sketch_omega_launches": launches["sketch_omega"]})
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg = build_basis(source=S1, strategy="sketch+greedy", tau=CUT_SG_TAU,
+                     max_k=MAX_K, sketch_p=0, sketch_power=0,
+                     tile_m=CUT_TILE, device=dev)
+    torch.cuda.synchronize()
+    sg_wall = time.perf_counter() - t0
+    sg_launches = read_counts()
+    worst = float(per_column_errors(S1, sg.Q).max())
+    pv = sg.provenance
+    k0, sweeps = pv["sketch"]["k0"], pv["sweeps"]
+    k0_worst = float(per_column_errors(S1, sg.Q[:, :k0].contiguous()).max())
+    check(pv["stop"] == "STOP_TAU" and worst < CUT_SG_TAU,
+          f"randomized_cut sketch+greedy: {pv['stop']}, worst column "
+          f"{worst} vs tau {CUT_SG_TAU}")
+    check(k0 < sg.k and sweeps > 0,
+          f"randomized_cut sketch+greedy: no refinement (k0 {k0}, k "
+          f"{sg.k}, {sweeps} sweeps)")
+    check(np.all(sg.pivots[:k0] == -1) and np.all(sg.pivots[k0:] >= 0),
+          "randomized_cut sketch+greedy: pivots")
+    check(sg_launches["greedy_update"] == n_tiles * sweeps
+          and sg_launches["greedy_update_sm90"]
+          == sg_launches["greedy_update"],
+          f"randomized_cut sketch+greedy: greedy_update launches "
+          f"{sg_launches} for {n_tiles} tiles x {sweeps} sweeps")
+    check(sg_launches["imgs_project"] > 0
+          and sg_launches["imgs_project_sm90"]
+          == sg_launches["imgs_project"],
+          f"randomized_cut sketch+greedy: imgs_project launches "
+          f"{sg_launches}")
+    check(sg_launches["sketch_omega"] == n_tiles,
+          f"randomized_cut sketch+greedy: {sg_launches['sketch_omega']} "
+          f"sketch_omega launches for {n_tiles} tiles")
+    emit("randomized_cut", card=smi, cut={"N": N, "M": Mc,
+                                          "stride": CUT_STRIDE,
+                                          "dtype": "complex128"},
+         tile_m=CUT_TILE, sketch_p=SKETCH_P, pod_tail=tail,
+         range_finder_bound=bound_rf, slack=4.0, floor=floor, runs=runs,
+         sketch_greedy={"tau": CUT_SG_TAU, "sketch_p": 0, "power": 0,
+                        "k0": k0, "sigma_at_k0": pv["sigma_estimates"][
+                            k0 - 1:k0 + 1], "k0_max_col_err": k0_worst,
+                        "k": sg.k, "stop": pv["stop"],
+                        "sweeps": sweeps, "refreshes": pv["refreshes"],
+                        "max_col_err": worst, "wall_s": sg_wall,
+                        "launches": sg_launches})
+    del S1, sg
+    torch.cuda.empty_cache()
+    return sg_launches
+
+
+def randomized_resume_phase(f, m1, m2, dev) -> None:
+    """A sketch over generated tiles at M 131,072 killed mid-pass and
+    resumed (checkpoints every 2 tiles): at a tile of phase 0 (power 0) and
+    of the odd phase (power 1).  Y (the final checkpoint's), sigma_hat, k,
+    Q and the norms bitwise the uninterrupted run's."""
+    from repro_torch.checkpoint.io import load_checkpoint_raw
+    from repro_torch.core.randomized import rb_randomized_streamed
+    from repro_torch.data import FaultPlan, FaultyProvider, WaveformProvider
+
+    prov = WaveformProvider(f, m1, m2, dtype=torch.complex64, device=dev)
+    n_tiles = -(-M // RESUME_TILE)
+    out = []
+    for power, raise_at in ((0, 5), (1, n_tiles + 5)):
+        kw = dict(tau=TAU, max_k=MAX_K, sketch_p=SKETCH_P, power=power,
+                  tile_m=RESUME_TILE, seed=SEED)
+        with tempfile.TemporaryDirectory() as a, \
+                tempfile.TemporaryDirectory() as b:
+            ref = rb_randomized_streamed(prov, checkpoint_dir=a, **kw)
+            try:
+                rb_randomized_streamed(FaultyProvider(
+                    prov, FaultPlan(raise_at_tile=raise_at)),
+                    checkpoint_dir=b, checkpoint_every_tiles=2, **kw)
+                check(False, "randomized_resume: the fault did not fire")
+            except IOError as e:
+                check("injected hard I/O fault" in str(e),
+                      f"randomized_resume: {e}")
+            mid = load_checkpoint_raw(b)
+            check(int(mid["phase"]) == power and int(mid["cursor"]) > 0,
+                  f"randomized_resume power {power}: checkpoint at phase "
+                  f"{int(mid['phase'])} tile {int(mid['cursor'])}")
+            got = rb_randomized_streamed(prov, checkpoint_dir=b,
+                                         resume=True, **kw)
+            same_y = np.array_equal(load_checkpoint_raw(a)["Y"],
+                                    load_checkpoint_raw(b)["Y"])
+        ok = (same_y and got.k == ref.k
+              and np.array_equal(got.svals, ref.svals)
+              and torch.equal(got.Q, ref.Q)
+              and torch.equal(got.norms_sq, ref.norms_sq))
+        check(ok, f"randomized_resume power {power}: not bitwise the "
+              f"uninterrupted run (Y equal: {same_y})")
+        out.append({"power": power, "crash_at_tile_read": raise_at,
+                    "resumed_from": [int(mid["phase"]),
+                                     int(mid["cursor"])],
+                    "k": got.k, "bitwise": ok})
+    emit("randomized_resume", M=M, tile_m=RESUME_TILE, n_tiles=n_tiles,
+         runs=out)
+
+
+def randomized_paper(dev, f, smi, reset_counts, read_counts, stream_err):
+    """The paper's M through the front door: strategy="randomized" at power
+    0, then 1, then strategy="sketch+greedy" with a tau taken from power
+    0's estimates (so that the sketch's k0 stays below max_k); each
+    basis's sampled error beside ``stream_err``, the stepwise streamed
+    build's on the same columns.  Returns the launches of the power-1 run
+    and of the sketch+greedy run."""
+    from repro_torch.api import ReductionSpec, build_basis
+    from repro_torch.core.errors import per_column_errors
+    from repro_torch.gw import WaveformGrid, chirp_grid
+
+    m1, m2 = chirp_grid(n_mc=N_MC_PAPER, n_eta=N_ETA)
+    Mp = m1.shape[0]
+    n_tiles = -(-Mp // STREAM_TILE)
+    gen = torch.Generator().manual_seed(SEED)
+    cols = torch.randperm(Mp, generator=gen)[:8192].numpy()
+    sample = WaveformGrid(f, m1[cols], m2[cols], device=dev).tile(
+        0, len(cols))
+    eps = torch.finfo(torch.float32).eps
+    # device memory: three tiles (the current one, the next one, the
+    # column norms' temporaries), the co-range Z and the two copies its QR
+    # makes, 2 GB of small buffers
+    mem_bound = 3 * N * STREAM_TILE * 8 + 3 * Mp * SKETCH_ELL * 8 + 2e9
+
+    def run(phase, **kw):
+        spec = ReductionSpec.waveform(f, m1, m2, max_k=MAX_K,
+                                      tile_m=STREAM_TILE, sketch_p=SKETCH_P,
+                                      sketch_seed=SEED, device=dev, **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = build_basis(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        k = b.k
+        check(5 <= k <= MAX_K and np.all(np.isfinite(b.errs)),
+              f"{phase}: bad rank {k}")
+        Q64 = b.Q.to(torch.complex128)
+        defect = float(torch.linalg.matrix_norm(
+            Q64.mH @ Q64 - torch.eye(k, dtype=Q64.dtype, device=dev), ord=2))
+        defect_bound = 100 * 2.0 * eps * math.sqrt(k)
+        check(defect <= defect_bound,
+              f"{phase}: orthogonality {defect} > {defect_bound}")
+        E = sample - b.Q @ (b.Q.mH @ sample)
+        pce = float(per_column_errors(sample, b.Q).max())
+        fro = float(torch.linalg.matrix_norm(E))
+        check(math.isfinite(pce) and math.isfinite(fro),
+              f"{phase}: sampled errors not finite")
+        check(peak <= mem_bound, f"{phase}: peak {peak} B > {mem_bound}")
+        check(launches["sketch_omega"] == n_tiles,
+              f"{phase}: {launches['sketch_omega']} sketch_omega launches "
+              f"for {n_tiles} tiles")
+        check(launches["taylorf2_tile"] > 0 and launches[
+            "taylorf2_tile_sm90"] == launches["taylorf2_tile"],
+            f"{phase}: a taylorf2_tile launch left the sm90 route")
+        return b, wall, launches, peak, defect, defect_bound, pce, fro
+
+    out, fro0, est0 = {}, None, None
+    for power in (0, 1):
+        phase = "randomized_paper"
+        b, wall, launches, peak, defect, defect_bound, pce, fro = run(
+            phase, strategy="randomized", tau=TAU, sketch_power=power)
+        sk = b.provenance["sketch"]
+        est = np.asarray(b.provenance["sigma_estimates"])
+        check(sk["n_passes"] == 1 + 2 * power and sk["n_tiles"] == n_tiles
+              and sk["ell"] == SKETCH_ELL,
+              f"{phase} power {power}: sketch record {sk}")
+        check(launches["taylorf2_tile"] == n_tiles * sk["n_passes"],
+              f"{phase} power {power}: {launches['taylorf2_tile']} "
+              f"generator launches for {n_tiles} x {sk['n_passes']}")
+        if power == 0:
+            fro0, est0 = fro, est
+        else:
+            # the reference's power test: no worse a projection
+            check(fro <= 2.0 * fro0, f"{phase}: power 1's sampled error "
+                  f"{fro} > 2 x power 0's {fro0}")
+        # the two scales the sketch+greedy tau is chosen between: the
+        # estimates near SG_K0 and the sampled error of the basis's
+        # leading columns
+        prefix_err = {j: float(per_column_errors(
+            sample, b.Q[:, :j].contiguous()).max())
+            for j in (75, 85, SG_K0) if j < b.k}
+        emit(phase, M=Mp, N=N, tile_m=STREAM_TILE, n_tiles=n_tiles,
+             power=power, passes=sk["n_passes"], ell=sk["ell"], k=b.k,
+             tau=TAU, wall_s=wall, s_per_pass=wall / sk["n_passes"],
+             swept_gb_s=sk["n_passes"] * N * Mp * 8 / wall / 1e9,
+             sigma_head=est[:5].tolist(), sigma_tail=est[-5:].tolist(),
+             sigma_at_k=float(est[b.k - 1]),
+             sigma_at={i: float(est[i - 1]) for i in
+                       (75, 85, SG_K0, SG_K0 + 1, SG_K0 + 2)},
+             max_sampled_col_err_of_first_k=prefix_err, launches=launches,
+             orthogonality=defect, orthogonality_bound=defect_bound,
+             max_sampled_col_err=pce, sampled_fro_err=fro,
+             streamed_paper_max_sampled_col_err=stream_err,
+             peak_mem_gb=peak / 1e9, peak_mem_bound_gb=mem_bound / 1e9,
+             nvidia_smi=smi)
+        out[power] = launches
+        del b
+        torch.cuda.empty_cache()
+
+    # sketch+greedy: tau between power 0's estimates SG_K0 and SG_K0 + 1,
+    # so the sketch (the same seed, width and tiles: the same estimates)
+    # keeps k0 = SG_K0 < max_k and the greedy refinement has slots
+    tau_sg = float(math.sqrt(est0[SG_K0 - 1] * est0[SG_K0]))
+    b, wall, launches, peak, defect, defect_bound, pce, fro = run(
+        "randomized_paper_sketch_greedy", strategy="sketch+greedy",
+        tau=tau_sg, sketch_power=0, keep_R=False)
+    pv = b.provenance
+    k0 = pv["sketch"]["k0"]
+    check(k0 == SG_K0 and b.k >= k0 and pv["sketch"]["refined_k"] == b.k,
+          f"sketch+greedy: k0 {k0} (expected {SG_K0}), k {b.k}")
+    check(np.all(b.pivots[:k0] == -1) and np.all(b.pivots[k0:] >= 0),
+          "sketch+greedy: pivots")
+    # the sketch's pass, then the refinement's: its warm init, its sweeps
+    # and refreshes, one generated tile each, and its single columns
+    gen_expect = n_tiles * (1 + pv["passes"]) + pv["columns"]
+    check(launches["taylorf2_tile"] == gen_expect,
+          f"sketch+greedy: {launches['taylorf2_tile']} generator launches,"
+          f" expected {gen_expect}")
+    check(launches["greedy_update"] == n_tiles * pv["sweeps"]
+          and launches["greedy_update_sm90"] == launches["greedy_update"],
+          f"sketch+greedy: greedy_update launches {launches}")
+    check(pce <= 100 * tau_sg,
+          f"sketch+greedy: sampled error {pce} > 100 tau ({tau_sg})")
+    emit("randomized_paper_sketch_greedy", M=Mp, N=N, tile_m=STREAM_TILE,
+         tau=tau_sg, tau_rule=f"sqrt(sigma_hat[{SG_K0 - 1}] * "
+         f"sigma_hat[{SG_K0}]) of power 0", k0=k0, k=b.k,
+         stop=pv["stop"], sweeps=pv["sweeps"], refreshes=pv["refreshes"],
+         refine_passes=pv["passes"], wall_s=wall, launches=launches,
+         orthogonality=defect, max_sampled_col_err=pce,
+         sampled_fro_err=fro, streamed_paper_max_sampled_col_err=stream_err,
+         usable_err_bound=100 * tau_sg,
+         usable=pce <= 100 * tau_sg, peak_mem_gb=peak / 1e9,
+         peak_mem_bound_gb=mem_bound / 1e9, nvidia_smi=smi)
+    del b, sample
+    torch.cuda.empty_cache()
+    return out[1], launches
 
 
 # ---------------------------------------------------------------- main ----
@@ -1632,12 +2100,13 @@ def main() -> None:
     from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_project import ops as ip_ops
     from repro_torch.kernels.roq_apply import ops as ra_ops
+    from repro_torch.kernels.sketch_omega import ops as so_ops
     from repro_torch.kernels.taylorf2 import ops as tf_ops
 
     counters = {"greedy_update": gu_ops, "imgs_project": ip_ops,
                 "block_sweep": bs_ops, "imgs_panel": pp_ops,
                 "flash_attention": fa_ops, "roq_apply": ra_ops,
-                "taylorf2_tile": tf_ops}
+                "taylorf2_tile": tf_ops, "sketch_omega": so_ops}
 
     # the wrappers that route between two kernels count each route apart
     routed = ("greedy_update", "imgs_project", "imgs_panel",
@@ -1694,6 +2163,7 @@ def main() -> None:
 
     timings = kernel_phase(S, dev)
     timings.update(taylorf2_phase(dev))
+    timings["sketch_omega"] = sketch_omega_phase(S, dev)
 
     cols = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :8192].to(dev)
@@ -1821,6 +2291,8 @@ def main() -> None:
     cut_basis, paper_launches = paper_phase(
         S, f, m1, m2, dev, cols, walls["build_basis"], smi, reset_counts,
         read_counts)
+    cut_sg_launches = randomized_cut_phase(f, m1, m2, dev, smi,
+                                           reset_counts, read_counts)
     roq_launches, roq_timings = roq_serve_phase(
         basis, cut_basis, dev, smi, reset_counts, read_counts)
     timings.update(roq_timings)
@@ -1849,11 +2321,17 @@ def main() -> None:
     streamed_phase(S, basis, f, m1, m2, dev)
     del S, cols, basis
     torch.cuda.empty_cache()
-    paper_launches_by_p = paper_streamed(dev, f, smi, reset_counts,
-                                         read_counts,
-                                         timings["taylorf2_tile"]["ms"])
+    paper_launches_by_p, stream_err = paper_streamed(
+        dev, f, smi, reset_counts, read_counts,
+        timings["taylorf2_tile"]["ms"])
     stream_launches = paper_launches_by_p[1]
     stream_blk_launches = paper_launches_by_p[BLOCK_P]
+
+    # --- the randomized range-finder: crash and resume at the resident M,
+    # then the paper's M (power 0, power 1, sketch+greedy)
+    randomized_resume_phase(f, m1, m2, dev)
+    rand_launches, sg_launches = randomized_paper(dev, f, smi, reset_counts,
+                                                  read_counts, stream_err)
 
     # --- the dense-LM serving path, with the GW S freed
     timings.update(lm_kernel_phase(dev))
@@ -1904,7 +2382,10 @@ def main() -> None:
             ("taylorf2_tile_general", "src/repro_torch/csrc/taylorf2.cu",
              "src/repro/data/providers.py:193-199 (jax.jit of "
              "taylorf2_batch, not a Pallas kernel)", stream_launches,
-             "taylorf2_tile_general")):
+             "taylorf2_tile_general"),
+            ("sketch_omega", "src/repro_torch/csrc/sketch_omega.cu",
+             "src/repro/core/randomized.py:99-123 (jax.random threefry "
+             "draws, not a Pallas kernel)", rand_launches, "sketch_omega")):
         t = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": path[key],
@@ -1916,6 +2397,9 @@ def main() -> None:
                             "block_greedy": blk_launches[key],
                             "streamed": stream_launches[key],
                             "streamed_blocked": stream_blk_launches[key],
+                            "randomized": rand_launches[key],
+                            "sketch_greedy": sg_launches[key],
+                            "sketch_greedy_cut": cut_sg_launches[key],
                             "serve": serve_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

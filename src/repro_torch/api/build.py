@@ -1,12 +1,16 @@
 """`build_basis`: the front door of the port.
 
 Port of :mod:`repro.api.build` for the resident strategies and the
-streamed one: ``greedy`` runs :func:`repro_torch.core.greedy.rb_greedy`,
+streamed ones: ``greedy`` runs :func:`repro_torch.core.greedy.rb_greedy`,
 ``block_greedy`` :func:`repro_torch.core.block_greedy.
-_rb_greedy_block_impl` and ``streamed``
-:func:`repro_torch.core.streaming.rb_greedy_streamed` (over the source's
-provider, never materialized), so the artifact's arrays equal the driver's
-(trimmed) output; the paper's oracles ``pod``
+_rb_greedy_block_impl`, ``streamed``
+:func:`repro_torch.core.streaming.rb_greedy_streamed`, ``randomized``
+:func:`repro_torch.core.randomized.rb_randomized_streamed` (a POD-shaped
+result: no pivots, the errs are the singular-value estimates) and
+``sketch+greedy`` that sketch refined to tau by the streamed greedy driver
+(the streamed strategies over the source's provider, never materialized),
+so the artifact's arrays equal the driver's (trimmed) output; the paper's
+oracles ``pod``
 (:func:`repro_torch.core.pod.pod`) and ``mgs``
 (:func:`repro_torch.core.mgs._mgs_pivoted_qr_impl`) run through the same
 door.
@@ -127,6 +131,85 @@ def _build_streamed(spec, prov, ckpt_dir=None):
     ), diag)
 
 
+def _sketch_extras(res):
+    """Randomized provenance: sketch params + singular-value estimates."""
+    return {
+        "sketch": {
+            "ell": int(res.ell),
+            "p": int(res.sketch_p),
+            "power": int(res.power),
+            "seed": int(res.seed),
+            "kind": res.kind,
+            "n_passes": int(res.n_passes),
+            "n_tiles": int(res.n_tiles),
+        },
+        "sigma_estimates": [float(s) for s in res.svals],
+    }
+
+
+def _run_sketch(spec, prov, ckpt_dir):
+    from repro_torch.core.randomized import rb_randomized_streamed
+
+    return rb_randomized_streamed(
+        prov, tau=spec.tau, max_k=spec.max_k, sketch_p=spec.sketch_p,
+        power=spec.sketch_power, seed=spec.sketch_seed,
+        kind=spec.sketch_kind, tile_m=spec.tile_m, backend=spec.backend,
+        checkpoint_dir=ckpt_dir,
+        checkpoint_every_tiles=spec.checkpoint_every_tiles,
+        resume=spec.resume and ckpt_dir is not None,
+    )
+
+
+def _build_randomized(spec, prov, ckpt_dir=None):
+    res = _run_sketch(spec, prov, ckpt_dir)
+    k = int(res.k)
+    # POD-shaped result: no pivots (the basis spans a sketched range, not
+    # selected columns), errs are the spectrum estimates
+    return (res.Q, np.zeros((0,), np.int32), np.asarray(res.svals[:k]),
+            None, k, _sketch_extras(res))
+
+
+def _build_sketch_greedy(spec, prov, ckpt_dir=None):
+    """One-pass sketch initializes Q; the streamed greedy driver refines it
+    to tau.
+
+    The sketch's basis enters :func:`repro_torch.core.streaming.
+    rb_greedy_streamed` through ``warm_start=`` with pivots of -1 (these
+    columns were not selected from S), and the greedy loop extends it with
+    the directions the sketch missed, under tau's exact Eq.-(6.3) error
+    control.  The refinement runs stepwise (block_p = 1): the blocked
+    driver's compaction drops slots whose pivot is -1, which would evict
+    the warm columns.
+    """
+    from repro_torch.core.streaming import rb_greedy_streamed
+
+    sketch_dir = os.path.join(ckpt_dir, "sketch") if ckpt_dir else None
+    refine_dir = os.path.join(ckpt_dir, "refine") if ckpt_dir else None
+    res = _run_sketch(spec, prov, sketch_dir)
+    k0 = int(res.k)
+    warm = {
+        "Q": res.Q,
+        "pivots": np.full((k0,), -1, np.int32),
+        "errs": np.asarray(res.svals[:k0]),
+    }
+    diag = {}
+    refined = rb_greedy_streamed(
+        prov, tau=spec.tau, max_k=spec.max_k, tile_m=spec.tile_m,
+        block_p=1, kappa=spec.kappa, max_passes=spec.max_passes,
+        refresh=spec.refresh, refresh_safety=spec.refresh_safety,
+        backend=spec.backend, panel_ortho=spec.panel_ortho,
+        keep_R=spec.keep_R, checkpoint_dir=refine_dir,
+        checkpoint_every_tiles=spec.checkpoint_every_tiles,
+        resume=spec.resume, callback=spec.callback, warm_start=warm,
+        diagnostics=diag,
+    )
+    # the refinement's passes over S, as strategy="streamed" records them
+    out = _trim_greedy(refined, {**diag, **_sketch_extras(res)})
+    out[5]["sketch"]["k0"] = k0
+    out[5]["sketch"]["refined_k"] = out[4]
+    return out
+
+
 def _build_mgs(spec, S, ckpt_dir=None):
     from repro_torch.core.mgs import _mgs_pivoted_qr_impl
 
@@ -145,10 +228,15 @@ def _build_pod(spec, S, ckpt_dir=None):
             res.sigmas[:k].cpu().numpy(), None, k, {})
 
 
+# strategies that stream their source's tiles instead of materializing it
+_STREAMING_STRATEGIES = ("streamed", "randomized", "sketch+greedy")
+
 _BUILDERS = {
     "greedy": _build_greedy,
     "block_greedy": _build_block_greedy,
     "streamed": _build_streamed,
+    "randomized": _build_randomized,
+    "sketch+greedy": _build_sketch_greedy,
     "mgs": _build_mgs,
     "pod": _build_pod,
 }
@@ -210,7 +298,7 @@ def build_basis(spec: ReductionSpec | None = None,
         strategy = "greedy"
         logger.info("auto strategy -> 'greedy' (the roofline model that "
                     "picks the blocked path is not ported to repro_torch)")
-    if strategy == "streamed":
+    if strategy in _STREAMING_STRATEGIES:
         # the source stays where it is: the driver streams its tiles
         S = as_provider(spec.source, device)
         if S.device != device:

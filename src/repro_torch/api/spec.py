@@ -1,9 +1,9 @@
 """`ReductionSpec`: one declarative description of a basis build.
 
 Port of :mod:`repro.api.spec`, limited to the fields the ported builders
-(``greedy``, ``block_greedy``, ``streamed``, ``pod``, ``mgs``) read, plus
-``device``.  The other strategies of the reference (``randomized``,
-``sketch+greedy``, ``batched``, ``distributed``) are named in
+(``greedy``, ``block_greedy``, ``streamed``, ``randomized``,
+``sketch+greedy``, ``pod``, ``mgs``) read, plus ``device``.  The other
+strategies of the reference (``batched``, ``distributed``) are named in
 ``STRATEGIES``; asking for one of them raises ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports it.
 """
@@ -21,8 +21,6 @@ STRATEGIES = (
 
 # Strategy -> the ROADMAP.md item that ports it.
 _NOT_PORTED = {
-    "randomized": "queue 1 item 5 (randomized sketch)",
-    "sketch+greedy": "queue 1 item 5 (randomized sketch)",
     "batched": "queue 1 item 6 (batched many-basis greedy)",
     "distributed": "queue 1 item 7 (distributed greedy)",
 }
@@ -40,9 +38,12 @@ class ReductionSpec:
         GW snapshot tiles on the fly; see :meth:`waveform`).
       strategy: ``"greedy"``, ``"block_greedy"``, ``"streamed"`` (the
         out-of-core driver: S streamed through the device in column
-        tiles, never resident), ``"pod"`` (Algorithm 1, an SVD), ``"mgs"``
-        (Algorithm 2, pivoted MGS), or ``"auto"`` (which resolves to
-        ``"greedy"``).  The reference's other strategies raise
+        tiles, never resident), ``"randomized"`` (the streamed randomized
+        range-finder: 1 + 2 * sketch_power passes over S whatever k is),
+        ``"sketch+greedy"`` (that sketch, then the streamed greedy driver
+        refining its basis to tau), ``"pod"`` (Algorithm 1, an SVD),
+        ``"mgs"`` (Algorithm 2, pivoted MGS), or ``"auto"`` (which
+        resolves to ``"greedy"``).  The reference's other strategies raise
         ``NotImplementedError``.
       tau: stopping tolerance (the paper's ``tau``; for ``pod`` the
         smallest k with ``sigma_{k+1} < tau``).
@@ -51,7 +52,8 @@ class ReductionSpec:
         ``"auto" | "ref"`` or None (env/default).
       chunk: greedy iterations per host sync (``block_greedy`` runs
         ``max(1, chunk // block_p)`` blocks per sync).
-      tile_m: streamed tile width in columns (``streamed``).
+      tile_m: streamed tile width in columns (``streamed``,
+        ``randomized``, ``sketch+greedy``).
       block_p: pivots per sweep of S (``block_greedy``, ``streamed``);
         ``1`` is the
         paper's stepwise selection, > 1 amortizes each read of S over
@@ -76,6 +78,14 @@ class ReductionSpec:
         also save every that many tiles of a sweep); ``resume`` also
         governs ``workdir``.
       callback: per-chunk callback, forwarded to the driver.
+      sketch_p, sketch_power, sketch_seed, sketch_kind: randomized
+        range-finder knobs (``randomized`` / ``sketch+greedy``):
+        oversampling columns beyond ``max_k`` (the bound's p),
+        subspace-iteration rounds (2 extra passes over S each), the
+        test-matrix seed, and its distribution (``"gaussian"`` or
+        ``"rademacher"``) — blocks are drawn per tile from
+        ``fold_in(PRNGKey(sketch_seed), tile_index)``, the JAX package's
+        own stream, so builds are reproducible and resumable.
       device: where the build runs — ``"cuda"`` (default) or ``"cpu"``.
     """
 
@@ -99,6 +109,10 @@ class ReductionSpec:
     checkpoint_every_tiles: int = 0
     resume: bool = False
     callback: Optional[Callable] = None
+    sketch_p: int = 10
+    sketch_power: int = 0
+    sketch_seed: int = 0
+    sketch_kind: str = "gaussian"
     device: str = "cuda"
 
     def __post_init__(self):

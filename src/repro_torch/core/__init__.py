@@ -3,8 +3,8 @@
 The recommended entry point is the front door, :mod:`repro_torch.api` —
 ``build_basis(source=S, tau=...)`` dispatches to the right engine
 (``strategy="pod" | "mgs" | "greedy" | "block_greedy" | "streamed" |
-"auto"``) and
-returns one ``ReducedBasis`` artifact.
+"randomized" | "sketch+greedy" | "auto"``) and returns one
+``ReducedBasis`` artifact.
 
 - :mod:`repro_torch.core.pod`            -- Algorithm 1 (POD via SVD).
 - :mod:`repro_torch.core.mgs`            -- Algorithm 2 (MGS with column
@@ -16,6 +16,9 @@ returns one ``ReducedBasis`` artifact.
   sweep).
 - :mod:`repro_torch.core.streaming`      -- the out-of-core driver: S
   streamed through the device in column tiles from a snapshot provider.
+- :mod:`repro_torch.core.randomized`     -- streamed randomized
+  range-finder (sketched POD): ONE pass over the provider builds
+  Y = S @ Omega, then a small dense SVD; ``estimate_rank``.
 - :mod:`repro_torch.core.rrqr`           -- optimal RRQR (Theorem 5.1).
 - :mod:`repro_torch.core.reconstruction` -- Algorithm 4 (QR + SVD-of-R).
 - :mod:`repro_torch.core.eim`            -- empirical interpolation + ROQ.
@@ -35,6 +38,12 @@ from repro_torch.core.greedy import (
 )
 from repro_torch.core.mgs import mgs_pivoted_qr
 from repro_torch.core.pod import pod, pod_basis
+from repro_torch.core.randomized import (
+    RandomizedSketchResult,
+    RankEstimate,
+    estimate_rank,
+    rb_randomized_streamed,
+)
 from repro_torch.core.reconstruction import reconstruction
 from repro_torch.core.rrqr import optimal_rrqr
 from repro_torch.core.streaming import StreamedGreedyResult, rb_greedy_streamed
@@ -44,5 +53,6 @@ __all__ = [
     "rb_greedy_stepwise", "rb_greedy_scan", "imgs_orthogonalize",
     "optimal_rrqr", "reconstruction", "eim_nodes", "empirical_interpolant",
     "roq_weights", "resolve_backend", "StreamedGreedyResult",
-    "rb_greedy_streamed",
+    "rb_greedy_streamed", "rb_randomized_streamed",
+    "RandomizedSketchResult", "estimate_rank", "RankEstimate",
 ]

@@ -13,6 +13,21 @@ in two more:
   panel_project  one classical-GS projection of a whole (N, p) panel,
                  ``C = Q^H V``, ``V' = V - Q C``.
 
+The randomized range-finder (:mod:`repro_torch.core.randomized`) adds
+three:
+
+  sketch_block   tile t's test block ``Omega_t``, the reference's
+                 ``jax.random`` draws (:mod:`repro_torch.kernels.
+                 sketch_omega`),
+  sketch_fold    ``Y + T @ Omega``, one tile's share of the sketch,
+  sketch_project ``T^H @ Y``, one tile's rows of the co-range ``S^H Y``.
+
+The two products are plain GEMMs, which the reference also leaves outside
+any Pallas kernel (its ``core/backend.py``: "no dedicated Pallas kernel");
+here they are ``torch.addmm`` / ``torch.matmul`` on native complex under
+both backends (the reference's ``xla`` splits complex operands into re/im
+planes because a TPU's matrix unit is real).
+
 Two backends:
 
   ``auto``  the hand-written CUDA kernels for CUDA tensors
@@ -43,6 +58,8 @@ from repro_torch.kernels.imgs_panel.ops import imgs_panel
 from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 from repro_torch.kernels.imgs_project.ops import imgs_project
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
+from repro_torch.kernels.sketch_omega.ops import sketch_omega
+from repro_torch.kernels.sketch_omega.ref import sketch_omega_ref
 
 VALID_BACKENDS = ("auto", "ref")
 
@@ -108,3 +125,31 @@ def panel_project(V: torch.Tensor, Q: torch.Tensor,
     if resolve_backend(backend) == "ref":
         return imgs_panel_ref(V, Q)
     return imgs_panel(V, Q)
+
+
+def sketch_block(seed: int, tile: int, shape: tuple[int, int],
+                 dtype: torch.dtype, kind: str, device: torch.device,
+                 backend: str | None = None) -> torch.Tensor:
+    """Tile ``tile``'s (m, ell) test block under ``seed`` on ``device``:
+    the ``sketch_omega`` kernel on a CUDA device (``auto``), else its plain
+    version."""
+    if resolve_backend(backend) == "ref":
+        return sketch_omega_ref(seed, tile, shape, dtype, kind, device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    return sketch_omega(seed, tile, out, kind)
+
+
+def sketch_fold(T: torch.Tensor, Omega: torch.Tensor, Y: torch.Tensor,
+                backend: str | None = None) -> torch.Tensor:
+    """One tile's contribution to the randomized sketch: ``Y + T @ Omega``
+    for an (N, m) tile, its (m, ell) block and the running (N, ell) sketch.
+    ``Y`` is not modified."""
+    resolve_backend(backend)
+    return torch.addmm(Y, T, Omega)
+
+
+def sketch_project(T: torch.Tensor, Y: torch.Tensor,
+                   backend: str | None = None) -> torch.Tensor:
+    """One tile's co-range rows for the power pass: ``T^H @ Y``, (m, ell)."""
+    resolve_backend(backend)
+    return T.mH @ Y

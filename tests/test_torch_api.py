@@ -82,8 +82,15 @@ def test_auto_strategy_is_greedy(caplog):
 @pytest.mark.parametrize("strategy", ["distributed", "randomized",
                                       "sketch+greedy", "batched"])
 def test_unported_strategy_names_roadmap(strategy):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)
+    """``distributed`` and ``batched`` raise, naming their ROADMAP.md item;
+    ``randomized`` and ``sketch+greedy`` (queue 1 item 5) are ported and
+    make a spec."""
+    if strategy in ("randomized", "sketch+greedy"):
+        spec = tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)
+        assert spec.strategy == strategy and spec.sketch_p == 10
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)
     with pytest.raises(ValueError, match="unknown strategy"):
         tapi.ReductionSpec(source=np.zeros((4, 4)), strategy="nope")
 

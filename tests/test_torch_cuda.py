@@ -1046,3 +1046,90 @@ def test_host_provider_copies_through_pinned_buffers(cuda):
     b = rb_greedy_streamed(dev, 1e-2, max_k=20, tile_m=64)
     assert a.k == b.k and torch.equal(a.Q, b.Q)
     assert torch.equal(a.pivots, b.pivots)
+
+
+# relative tolerance of a gaussian block, kernel against plain version:
+# only erfinv differs (CUDA's erfinvf / erfinv against PyTorch's)
+_GAUSS_TOL = {torch.float32: 1e-5, torch.complex64: 1e-5,
+              torch.float64: 1e-10, torch.complex128: 1e-10}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1), (7, 25), (4097, 1), (4097, 25),
+                                   (65536, 110)])
+def test_sketch_omega_kernel_matches_plain(cuda, shape, dtype, kind):
+    """The generator kernel against its plain version (on the card) at
+    seeds past 2^32 and tiles 0 / 49: rademacher bitwise, gaussian within
+    _GAUSS_TOL of max(1, |omega|); one launch counted a call; two launches
+    bitwise."""
+    from repro_torch.kernels.sketch_omega import ops as so_ops
+    from repro_torch.kernels.sketch_omega.ref import sketch_omega_ref
+
+    for seed, tile in ((0, 0), (7, 49), (2 ** 40 + 3, 49)):
+        n0 = so_ops.launches
+        out = so_ops.sketch_omega(seed, tile,
+                                  torch.empty(shape, dtype=dtype,
+                                              device=cuda), kind)
+        again = so_ops.sketch_omega(seed, tile, torch.empty_like(out), kind)
+        torch.cuda.synchronize()
+        assert so_ops.launches == n0 + 2 and torch.equal(out, again)
+        ref = sketch_omega_ref(seed, tile, shape, dtype, kind, cuda)
+        if kind == "rademacher":
+            assert torch.equal(out, ref)
+        else:
+            err = ((out - ref).abs() / ref.abs().clamp(min=1.0)).max()
+            assert float(err) <= _GAUSS_TOL[dtype], float(err)
+
+
+@pytest.mark.cuda
+def test_sketch_omega_never_takes_the_plain_version_on_cuda(cuda,
+                                                            monkeypatch):
+    """A CUDA tensor gets the kernel, never the plain version."""
+    from repro_torch.kernels.sketch_omega import ops as so_ops
+
+    def no(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(so_ops, "sketch_omega_ref", no)
+    out = torch.empty((33, 5), dtype=torch.complex64, device=cuda)
+    so_ops.sketch_omega(3, 1, out)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("power", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float64])
+def test_randomized_sketch_on_cuda(cuda, dtype, power, tmp_path):
+    """rb_randomized_streamed on the card: one sketch_omega launch a tile
+    (phase 0 only), the CPU build's k and sigma_hat within tolerance, and
+    a crash mid-pass resumed to the uninterrupted bits."""
+    from repro_torch.core.randomized import rb_randomized_streamed
+    from repro_torch.data import ArrayProvider, FaultPlan, FaultyProvider
+    from repro_torch.kernels.sketch_omega import ops as so_ops
+
+    gen = torch.Generator().manual_seed(3)
+    r = 12
+    S = (_rand(gen, (500, r), dtype, "cpu")
+         @ _rand(gen, (r, 333), dtype, "cpu"))
+    kw = dict(tau=1e-3 * float(torch.linalg.matrix_norm(S, ord=2)),
+              max_k=20, sketch_p=6, power=power, tile_m=40)
+    n0 = so_ops.launches
+    got = rb_randomized_streamed(S.to(cuda), **kw)
+    assert so_ops.launches - n0 == got.n_tiles == 9
+    cpu = rb_randomized_streamed(S, device="cpu", **kw)
+    assert got.k == cpu.k == r and got.ell == cpu.ell
+    np.testing.assert_allclose(got.svals, cpu.svals, rtol=0,
+                               atol=1e-4 * float(cpu.svals[0]))
+    d = str(tmp_path / "ck")
+    prov = FaultyProvider(ArrayProvider(S.to(cuda), device=cuda),
+                          FaultPlan(raise_at_tile=5 + 9 * power))
+    with pytest.raises(IOError):
+        rb_randomized_streamed(prov, checkpoint_dir=d,
+                               checkpoint_every_tiles=2, **kw)
+    res = rb_randomized_streamed(S.to(cuda), checkpoint_dir=d, resume=True,
+                                 **kw)
+    assert torch.equal(res.Q, got.Q) and np.array_equal(res.svals,
+                                                        got.svals)

@@ -1,6 +1,7 @@
 """The port's examples run end to end on the CPU (``device="cpu"``), at
-the sizes of the JAX package's ``examples/quickstart.py`` and
-``examples/gw_roq.py``, and land where those do."""
+the sizes of the JAX package's ``examples/quickstart.py``,
+``examples/gw_roq.py`` and ``examples/randomized_sketch.py``, and land
+where those do."""
 
 import ast
 import importlib.util
@@ -54,8 +55,19 @@ def test_torch_streaming_gw_runs_on_cpu(tmp_path, capsys):
     assert "basis   1" not in capsys.readouterr().out
 
 
+def test_torch_randomized_sketch_runs_on_cpu():
+    """The reference example's grid (1200 x 1500 complex64): a three-pass
+    sketch, then sketch+greedy, which meets tau on the whole family."""
+    out = _load("torch_randomized_sketch").main(device="cpu")
+    assert out["n_passes"] == 3 and 40 <= out["k"] <= 80
+    assert out["refined_k"] == out["k0"] + out["added"] >= out["k0"]
+    assert out["stop"] == "STOP_TAU" and out["max_err_refined"] < 1e-4
+    assert out["max_err_randomized"] < 1e-3
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_gw_roq",
-                                  "torch_streaming_gw"])
+                                  "torch_streaming_gw",
+                                  "torch_randomized_sketch"])
 def test_torch_examples_import_no_jax(name):
     """The port's examples import neither JAX nor the JAX package, and
     default to the card."""
