@@ -14,9 +14,28 @@ oracles ``pod``
 (:func:`repro_torch.core.pod.pod`) and ``mgs``
 (:func:`repro_torch.core.mgs._mgs_pivoted_qr_impl`) run through the same
 door.
-``strategy="auto"`` resolves to ``"greedy"`` (the roofline model that picks
-the blocked path is not ported yet) and logs the choice on logger
-``repro_torch.api``.
+
+Strategy ``"auto"`` picks the driver from the problem shape, a
+device-memory budget and a DRAM-roofline model of the device, as the
+reference does, before anything is materialized:
+
+  roof-bound, max_k set, greedy pass
+    count > 2x the sketch's          -> "randomized" (one-pass range-finder)
+  fits budget, sweep roof-bound      -> "block_greedy" (blocked sweep)
+  fits budget otherwise              -> "greedy"   (resident chunked)
+  too big, sweep roof-bound          -> "streamed" + block_p (blocked)
+  too big otherwise                  -> "streamed" (tile-streamed)
+
+"Roof-bound" means the Eq.-(6.3) pivot sweep's arithmetic intensity sits
+below the machine balance (peak FLOP/s over DRAM bandwidth) AND one sweep
+over S exceeds the last-level cache.  The model's knobs come from the spec
+(``bandwidth_gbps`` / ``peak_gflops`` / ``cache_bytes``), the
+``REPRO_DRAM_BW_GBPS`` / ``REPRO_PEAK_GFLOPS`` / ``REPRO_LLC_BYTES`` env
+vars, a one-time measurement on the build's device
+(:mod:`repro_torch.api.roofline`), or per-device defaults, in that order.
+A mesh or a many-basis workload (the reference's ``"distributed"`` and
+``"batched"``) raises ``NotImplementedError``.  The choice and the numbers
+behind it are logged on logger ``repro_torch.api``.
 """
 
 from __future__ import annotations
@@ -26,13 +45,14 @@ import logging
 import os
 import shutil
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.api.artifact import ReducedBasis
-from repro_torch.api.spec import ReductionSpec
-from repro_torch.device import resolve_device
+from repro_torch.api.spec import _NOT_PORTED, ReductionSpec
+from repro_torch.device import resolve_device, torch_dtype
 
 logger = logging.getLogger("repro_torch.api")
 
@@ -41,7 +61,8 @@ _FALLBACK_BUDGET = 4 << 30  # 4 GiB when nothing else is detectable
 
 
 def device_memory_budget(device=None) -> int:
-    """Device-memory budget (bytes) that the serving router plans against.
+    """Device-memory budget (bytes) that ``"auto"`` and the serving router
+    plan against.
 
     Precedence: ``REPRO_DEVICE_MEM_BUDGET`` > the card's total memory
     (``torch.cuda.mem_get_info``; ``device`` None means the current card
@@ -63,6 +84,203 @@ def device_memory_budget(device=None) -> int:
     except OSError:
         pass
     return _FALLBACK_BUDGET
+
+
+def _resident_bytes(shape, dtype, max_k: Optional[int]) -> int:
+    """Device footprint of a resident greedy build: S + Q + R (+ M-vectors)."""
+    N, M = shape
+    mk = min(N, M) if max_k is None else min(max_k, N, M)
+    itemsize = torch_dtype(dtype).itemsize
+    return itemsize * (N * M + mk * (N + M)) + 4 * M * itemsize
+
+
+# --------------------------------------------------- DRAM roofline model ----
+
+_ENV_BW = "REPRO_DRAM_BW_GBPS"
+_ENV_FLOPS = "REPRO_PEAK_GFLOPS"
+_ENV_CACHE = "REPRO_LLC_BYTES"
+
+# Roofs per device type for when nothing is measured or configured:
+# (DRAM bandwidth GB/s, peak GFLOP/s, last-level cache bytes).  "cpu" is
+# the reference's row, so the CPU reproduces its decision table; "cuda"
+# is what this module's calibration measured on one NVIDIA H100 80GB HBM3
+# at a 700.00 W power limit (chip_smoke.py, phase roofline): the
+# greedy_update sweep over 128 MB, a 512^3 float32 GEMM (TF32 off) and
+# the llc_probe cliff (32 MB of the 50 MB L2 stream at the L2's rate).
+_PLATFORM_ROOFS = {
+    "cpu": (25.0, 80.0, 64 << 20),
+    "cuda": (2616.5, 14_980.0, 32 << 20),
+}
+
+# Panel width "auto" applies when it decides blocking pays and the spec
+# left block_p at the stepwise default: one S read per 8 bases, the
+# reference's rule (the blocked basis falls short at the GW shapes in both
+# packages: ROADMAP.md queue 3).
+_AUTO_BLOCK_P = 8
+
+
+def machine_roofline(spec: Optional[ReductionSpec] = None, device=None):
+    """(bandwidth GB/s, peak GFLOP/s, cache bytes) the ``"auto"`` roofline
+    model plans against, for ``spec.device`` (or ``device`` without a
+    spec; ``cuda`` unless asked).  Precedence per knob: spec field >
+    ``REPRO_DRAM_BW_GBPS`` / ``REPRO_PEAK_GFLOPS`` / ``REPRO_LLC_BYTES``
+    env var > one-time on-device measurement
+    (:func:`repro_torch.api.roofline.measured_roofline` for
+    bandwidth/FLOPs, :func:`repro_torch.api.roofline.measured_cache_bytes`
+    for the LLC working-set sweep; all skipped under
+    ``REPRO_ROOFLINE_MEASURE=0``) > per-device default."""
+    from repro_torch.api import roofline
+
+    dev = resolve_device(device if spec is None else spec.device)
+    defaults = _PLATFORM_ROOFS.get(dev.type, _PLATFORM_ROOFS["cpu"])
+
+    def pinned(field, env):
+        if field is not None:
+            return float(field)
+        raw = os.environ.get(env)
+        return float(raw) if raw else None
+
+    bw = pinned(getattr(spec, "bandwidth_gbps", None), _ENV_BW)
+    gf = pinned(getattr(spec, "peak_gflops", None), _ENV_FLOPS)
+    if (bw is None or gf is None) and roofline.roofline_measurement_enabled():
+        # only knobs nobody pinned are filled from the measurement (a
+        # failed calibration reports 0.0 and falls through to defaults)
+        m_bw, m_gf = roofline.measured_roofline(dev)
+        if bw is None and m_bw > 0:
+            bw = m_bw
+        if gf is None and m_gf > 0:
+            gf = m_gf
+
+    cache_field = getattr(spec, "cache_bytes", None)
+    if cache_field is not None:
+        cache = int(cache_field)
+    else:
+        raw = os.environ.get(_ENV_CACHE)
+        if raw:
+            cache = int(float(raw))
+        else:
+            cache = defaults[2]
+            if roofline.roofline_measurement_enabled():
+                m_cache = roofline.measured_cache_bytes(dev)
+                if m_cache > 0:
+                    cache = m_cache
+
+    return (
+        defaults[0] if bw is None else bw,
+        defaults[1] if gf is None else gf,
+        cache,
+    )
+
+
+def _sweep_roofline(shape, dtype, spec: Optional[ReductionSpec] = None):
+    """Classify the Eq.-(6.3) pivot sweep for this problem.
+
+    Returns ``(roof_bound, why)``: one sweep reads S once (``N*M*itemsize``
+    bytes) for 2 real FLOPs per element (8 for complex).  The sweep is
+    DRAM-roof-bound when that intensity sits below the machine balance AND
+    the sweep exceeds the last-level cache — exactly the regime where
+    block pivoting (one read per block_p bases) is the lever.
+    """
+    bw, gflops, cache = machine_roofline(spec)
+    N, M = shape
+    dt = torch_dtype(dtype)
+    sweep_bytes = N * M * dt.itemsize
+    flops = (8 if dt.is_complex else 2) * N * M
+    intensity = flops / sweep_bytes
+    balance = gflops / bw
+    roof_bound = intensity < balance and sweep_bytes > cache
+    why = (f"sweep ~{sweep_bytes / 1e6:.0f} MB at {intensity:.2f} FLOP/B "
+           f"vs balance {balance:.2f} FLOP/B, cache ~{cache / 1e6:.0f} MB"
+           f" -> {'roof-bound' if roof_bound else 'not roof-bound'}")
+    return roof_bound, why
+
+
+def _estimated_max_k(spec: ReductionSpec, shape):
+    """Sketch-estimate a ``max_k`` for planning when the caller gave none.
+
+    Costs a few streamed passes over the source
+    (:func:`repro_torch.core.randomized.estimate_rank`), so it runs only
+    where the answer changes the plan (roof-bound sweeps, where the
+    greedy-vs-sketch pass-count comparison needs a rank) and only when
+    on-device probing is enabled (``REPRO_ROOFLINE_MEASURE=0`` also opts
+    out of this).  Returns None when the source can't be probed
+    (decision-level callers pass placeholder sources: a path that is no
+    ``.npy`` file, an object that is no matrix) or the estimate saturated
+    (a lower bound must not become a cap).  The returned cap carries 25%
+    + sketch_p headroom: the build's own tau stop remains the authority,
+    the cap just bounds planning and the Q allocation.
+    """
+    from repro_torch.core.randomized import estimate_rank
+
+    try:
+        est = estimate_rank(spec.source, tau=float(spec.tau),
+                            seed=spec.sketch_seed, kind=spec.sketch_kind,
+                            tile_m=spec.tile_m, backend=spec.backend,
+                            device=spec.device)
+    except (OSError, TypeError, ValueError) as e:
+        logger.info("rank estimation skipped (%s)", e)
+        return None
+    if est.saturated:
+        logger.info("rank estimate saturated at ell=%d; not capping",
+                    est.ell)
+        return None
+    cap = -(-est.k * 5 // 4) + spec.sketch_p
+    cap = min(cap, int(shape[0]), int(shape[1]))
+    logger.info("sketch-estimated rank ~%d (ell=%d, %d pass(es)) -> "
+                "planning max_k=%d", est.k, est.ell, est.passes, cap)
+    return cap
+
+
+def _auto_strategy(spec: ReductionSpec, shape, dtype):
+    """Resolve ``"auto"`` to ``(strategy, block_p, max_k)`` and log the
+    decision: the reference's order of decisions, on the spec's device.
+    ``max_k`` is ``spec.max_k`` unless the caller gave none and a
+    sketch-based rank estimate filled one in (:func:`_estimated_max_k`)."""
+    from repro_torch.api.roofline import roofline_measurement_enabled
+
+    block_p = spec.block_p
+    max_k = spec.max_k
+    need = _resident_bytes(shape, dtype, spec.max_k)
+    budget = (spec.memory_budget_bytes
+              if spec.memory_budget_bytes is not None
+              else device_memory_budget(spec.device))
+    roof_bound, roof_why = _sweep_roofline(shape, dtype, spec)
+    fits = need <= budget
+    fit_why = (f"resident footprint ~{need / 1e6:.0f} MB "
+               f"{'fits' if fits else 'exceeds'} the device budget "
+               f"~{budget / 1e6:.0f} MB")
+    if roof_bound and block_p == 1:
+        block_p = _AUTO_BLOCK_P
+    choice = ("block_greedy" if roof_bound else "greedy") if fits \
+        else "streamed"
+    why = f"{fit_why}; {roof_why}"
+    if roof_bound:
+        why += f"; blocked sweep, block_p={block_p}"
+    # On a roof-bound sweep every basis costs ~1/block_p of a DRAM read of
+    # S, so a greedy build streams S ~ceil(max_k / block_p) times; the
+    # one-pass sketch pays 1 + 2*sketch_power passes regardless of k.  When
+    # a rank target exists (given, or sketch-estimated when probing is
+    # enabled) and greedy's pass count exceeds TWICE the sketch's, the
+    # range-finder wins even after paying its probabilistic-vs-exact error
+    # margin.
+    if roof_bound and max_k is None and roofline_measurement_enabled():
+        max_k = _estimated_max_k(spec, shape)
+        if max_k is not None:
+            why += f"; sketch-estimated max_k={max_k}"
+    if roof_bound and max_k is not None:
+        greedy_passes = -(-max_k // max(block_p, 1))
+        sketch_passes = 1 + 2 * spec.sketch_power
+        if greedy_passes > 2 * sketch_passes:
+            choice = "randomized"
+            block_p = spec.block_p  # blocking is a greedy-only knob
+            why += (f"; ~{greedy_passes} greedy passes over S vs "
+                    f"{sketch_passes} sketch pass(es) -> randomized")
+    logger.info(
+        "auto strategy -> %r for shape %s %s (%s)",
+        choice, tuple(shape), str(torch_dtype(dtype)).removeprefix("torch."),
+        why,
+    )
+    return choice, block_p, max_k
 
 
 # Each builder returns (Q, pivots, errs, R, k, extras): the arrays trimmed
@@ -231,6 +449,22 @@ def _build_pod(spec, S, ckpt_dir=None):
 # strategies that stream their source's tiles instead of materializing it
 _STREAMING_STRATEGIES = ("streamed", "randomized", "sketch+greedy")
 
+
+def _is_batched_workload(spec: ReductionSpec) -> bool:
+    """Does this spec describe a many-basis (B-lane) build?
+
+    True when ``spec.batch`` is set, or the source is inherently B-laned:
+    a (B, N, M) stacked array, a list or tuple of per-lane sources (the
+    reference's ``BandSplit`` is a tuple).
+    """
+    if spec.batch is not None:
+        return True
+    src = spec.source
+    if isinstance(src, (list, tuple)):
+        return True
+    return getattr(src, "ndim", None) == 3
+
+
 _BUILDERS = {
     "greedy": _build_greedy,
     "block_greedy": _build_block_greedy,
@@ -249,11 +483,14 @@ def build_basis(spec: ReductionSpec | None = None,
     Call with a :class:`ReductionSpec`, keyword arguments, or both (the
     keywords override spec fields)::
 
-        basis = build_basis(source=S, tau=1e-6)              # on cuda
+        basis = build_basis(source=S, tau=1e-6)              # on cuda, auto
         basis = build_basis(source=S, tau=1e-6, device="cpu")
 
     Returns a :class:`ReducedBasis` trimmed to the accepted rank, with
-    build provenance attached.
+    build provenance attached.  ``"auto"`` decides on the source's shape
+    and dtype before it is materialized, so a source past the device
+    budget is streamed; on a many-basis workload (a (B, N, M) or list
+    source) it raises ``NotImplementedError``, as ``"batched"`` does.
     """
     if spec is None:
         spec = ReductionSpec(**kwargs)
@@ -263,6 +500,14 @@ def build_basis(spec: ReductionSpec | None = None,
         raise TypeError(
             f"build_basis takes a ReductionSpec (or keyword args), got "
             f"{type(spec).__name__}")
+
+    # A many-basis workload would return a set: decide BEFORE touching
+    # providers (a stacked 3-D source is not a valid single-basis one).
+    if spec.strategy == "auto" and _is_batched_workload(spec):
+        raise NotImplementedError(
+            f"auto strategy -> 'batched' ({type(spec.source).__name__} "
+            f"source, batch={spec.batch}), which is not ported to "
+            f"repro_torch yet: ROADMAP.md {_NOT_PORTED['batched']}")
 
     from repro_torch.core.backend import resolve_backend
     from repro_torch.data.providers import as_provider, materialize_source
@@ -295,9 +540,21 @@ def build_basis(spec: ReductionSpec | None = None,
 
     strategy = spec.strategy
     if strategy == "auto":
-        strategy = "greedy"
-        logger.info("auto strategy -> 'greedy' (the roofline model that "
-                    "picks the blocked path is not ported to repro_torch)")
+        # decide on the provider's shape and dtype: nothing is
+        # materialized before the choice, so a source past the budget
+        # never lands on the device
+        prov = as_provider(spec.source, device)
+        strategy, auto_p, auto_k = _auto_strategy(spec, prov.shape,
+                                                  prov.dtype)
+        if auto_p != spec.block_p:
+            # the roofline model opted into blocking: the chosen panel
+            # width must reach the driver (and the provenance)
+            spec = dataclasses.replace(spec, block_p=auto_p)
+        if auto_k != spec.max_k:
+            # a sketch-estimated rank cap (with headroom) must reach the
+            # chosen driver: the randomized builder sizes its sketch from
+            # it, the greedy family bounds Q with it
+            spec = dataclasses.replace(spec, max_k=auto_k)
     if strategy in _STREAMING_STRATEGIES:
         # the source stays where it is: the driver streams its tiles
         S = as_provider(spec.source, device)

@@ -1,11 +1,10 @@
 """`ReductionSpec`: one declarative description of a basis build.
 
-Port of :mod:`repro.api.spec`, limited to the fields the ported builders
-(``greedy``, ``block_greedy``, ``streamed``, ``randomized``,
-``sketch+greedy``, ``pod``, ``mgs``) read, plus ``device``.  The other
-strategies of the reference (``batched``, ``distributed``) are named in
-``STRATEGIES``; asking for one of them raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports it.
+Port of :mod:`repro.api.spec`: the reference's fields, plus ``device``.
+The strategies of the reference that are not ported yet (``batched``,
+``distributed``) are named in ``STRATEGIES``; asking for one of them, or
+setting the field that selects it (``batch``, ``mesh``), raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -14,6 +13,14 @@ import dataclasses
 import os
 from typing import Any, Callable, Optional
 
+# Reduction strategies build_basis dispatches on.  "auto" resolves to
+# "greedy" / "block_greedy" (the problem fits the device memory budget;
+# blocked when the Eq.-(6.3) sweep is DRAM-roof-bound), "streamed" (it
+# does not fit; blocked under the same roofline test), or "randomized" (a
+# max_k is given or sketch-estimated and the roofline model predicts the
+# greedy pass count costs more than twice the sketch's 1 + 2*sketch_power
+# passes) — see repro_torch.api.build.  A many-basis workload or a mesh
+# would resolve to "batched" / "distributed", which are not ported.
 STRATEGIES = (
     "pod", "mgs", "greedy", "block_greedy", "streamed", "distributed",
     "randomized", "sketch+greedy", "batched", "auto",
@@ -42,9 +49,10 @@ class ReductionSpec:
         range-finder: 1 + 2 * sketch_power passes over S whatever k is),
         ``"sketch+greedy"`` (that sketch, then the streamed greedy driver
         refining its basis to tau), ``"pod"`` (Algorithm 1, an SVD),
-        ``"mgs"`` (Algorithm 2, pivoted MGS), or ``"auto"`` (which
-        resolves to ``"greedy"``).  The reference's other strategies raise
-        ``NotImplementedError``.
+        ``"mgs"`` (Algorithm 2, pivoted MGS), or ``"auto"``, which picks
+        from the problem shape, the device-memory budget and a roofline
+        model of the device, and logs its choice.  The reference's other
+        strategies raise ``NotImplementedError``.
       tau: stopping tolerance (the paper's ``tau``; for ``pod`` the
         smallest k with ``sigma_{k+1} < tau``).
       max_k: basis-size cap (default ``min(N, M)``).
@@ -54,10 +62,14 @@ class ReductionSpec:
         ``max(1, chunk // block_p)`` blocks per sync).
       tile_m: streamed tile width in columns (``streamed``,
         ``randomized``, ``sketch+greedy``).
+      mesh: a device mesh — required by ``distributed``, and flips
+        ``"auto"`` to it.  Not ported: setting it raises
+        ``NotImplementedError``.
       block_p: pivots per sweep of S (``block_greedy``, ``streamed``);
         ``1`` is the
         paper's stepwise selection, > 1 amortizes each read of S over
-        block_p bases at the cost of pivot staleness.
+        block_p bases at the cost of pivot staleness.  ``"auto"`` may
+        raise it on roof-bound shapes (logged).
       panel_ortho: orthogonalize each block through the BLAS-3 panel path
         (:func:`repro_torch.core.greedy.panel_imgs_orthogonalize`) instead
         of p sequential GS chains (``block_p > 1``).
@@ -78,6 +90,17 @@ class ReductionSpec:
         also save every that many tiles of a sweep); ``resume`` also
         governs ``workdir``.
       callback: per-chunk callback, forwarded to the driver.
+      memory_budget_bytes: device-memory budget ``"auto"`` decides
+        against (default: detected device memory, overridable with the
+        ``REPRO_DEVICE_MEM_BUDGET`` env var).
+      bandwidth_gbps, peak_gflops, cache_bytes: the DRAM-roofline machine
+        model ``"auto"`` uses to detect roof-bound Eq.-(6.3) sweeps (and
+        pick a blocked strategy).  ``None`` falls back to the
+        ``REPRO_DRAM_BW_GBPS`` / ``REPRO_PEAK_GFLOPS`` /
+        ``REPRO_LLC_BYTES`` env vars, then to a one-time on-device
+        measurement (:mod:`repro_torch.api.roofline`;
+        ``REPRO_ROOFLINE_MEASURE=0`` opts out), then to per-device
+        defaults (see :func:`repro_torch.api.build.machine_roofline`).
       sketch_p, sketch_power, sketch_seed, sketch_kind: randomized
         range-finder knobs (``randomized`` / ``sketch+greedy``):
         oversampling columns beyond ``max_k`` (the bound's p),
@@ -86,6 +109,9 @@ class ReductionSpec:
         ``"rademacher"``) — blocks are drawn per tile from
         ``fold_in(PRNGKey(sketch_seed), tile_index)``, the JAX package's
         own stream, so builds are reproducible and resumable.
+      batch: lane count B for the many-basis lockstep build
+        (``"batched"``; setting it also flips ``"auto"`` to it).  Not
+        ported: setting it raises ``NotImplementedError``.
       device: where the build runs — ``"cuda"`` (default) or ``"cpu"``.
     """
 
@@ -96,6 +122,7 @@ class ReductionSpec:
     backend: Optional[str] = None
     chunk: int = 16
     tile_m: int = 8192
+    mesh: Any = None
     block_p: int = 1
     panel_ortho: bool = True
     adaptive_block: bool = False
@@ -109,10 +136,15 @@ class ReductionSpec:
     checkpoint_every_tiles: int = 0
     resume: bool = False
     callback: Optional[Callable] = None
+    memory_budget_bytes: Optional[int] = None
+    bandwidth_gbps: Optional[float] = None
+    peak_gflops: Optional[float] = None
+    cache_bytes: Optional[int] = None
     sketch_p: int = 10
     sketch_power: int = 0
     sketch_seed: int = 0
     sketch_kind: str = "gaussian"
+    batch: Optional[int] = None
     device: str = "cuda"
 
     def __post_init__(self):
@@ -129,6 +161,20 @@ class ReductionSpec:
             raise ValueError(
                 "workdir and checkpoint_dir are mutually exclusive: "
                 "workdir manages its own build/ checkpoint directory")
+        if self.batch is not None:
+            if self.batch < 1:
+                raise ValueError(f"batch must be >= 1, got {self.batch}")
+            if self.strategy not in ("batched", "auto"):
+                raise ValueError(
+                    f"batch= only applies to the batched strategy "
+                    f"(got strategy={self.strategy!r})")
+        for field, strategy in (("mesh", "distributed"),
+                                ("batch", "batched")):
+            if getattr(self, field) is not None:
+                raise NotImplementedError(
+                    f"{field}= selects strategy {strategy!r}, which is not "
+                    f"ported to repro_torch yet: ROADMAP.md "
+                    f"{_NOT_PORTED[strategy]}")
 
     @classmethod
     def waveform(cls, f, m1s, m2s, dtype=None, normalize: bool = True,
@@ -139,7 +185,8 @@ class ReductionSpec:
         :class:`~repro_torch.data.providers.WaveformProvider` on the spec's
         device (``kwargs["device"]``, ``cuda`` unless asked): the snapshot
         matrix is never materialized, so this pairs with
-        ``strategy="streamed"``.
+        ``strategy="streamed"`` (or ``"auto"``, which picks a streaming
+        strategy when the grid exceeds the memory budget).
         """
         import torch
 

@@ -216,15 +216,19 @@ def panel_imgs_orthogonalize(V: torch.Tensor, Q: torch.Tensor,
 
 
 def _column_norms_sq(S: torch.Tensor, col_chunk: int = 8192) -> torch.Tensor:
-    """sum_n |S[n, i]|^2 per column, in column chunks (no S-sized temp).
+    """sum_n |S[n, i]|^2 per column.
 
     Each column is summed in an order fixed by N alone
     (:func:`repro_torch.sums.column_norms_sq`), so the streamed
     driver's tiles give the same bits as the resident S: normalized GW
     snapshots have norms equal to an ulp, and the first pivot is their
-    argmax."""
+    argmax.  On the card S goes to the kernel in one launch; on the CPU
+    the plain tree runs in column chunks of ``col_chunk`` (its levels
+    are S-sized temporaries)."""
     from repro_torch.sums import column_norms_sq
 
+    if S.device.type != "cpu":
+        return column_norms_sq(S)
     out = torch.empty(S.shape[1], dtype=S.dtype.to_real(), device=S.device)
     for lo in range(0, S.shape[1], col_chunk):
         out[lo:lo + col_chunk] = column_norms_sq(S[:, lo:lo + col_chunk])

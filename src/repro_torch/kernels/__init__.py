@@ -17,4 +17,10 @@ against) and ``ops.py`` (the wrapper: checks, launch, launch counter):
 - ``taylorf2``      — TaylorF2 waveform tiles for the streamed build and the
   resident S, each column's bits independent of the tile
   (``csrc/taylorf2.cu``).
+- ``sketch_omega``  — the randomized range-finder's test blocks, JAX's
+  Threefry-2x32 stream (``csrc/sketch_omega.cu``).
+- ``column_norms``  — fixed-order squared column norms, the bits of the
+  plain halving tree in one read (``csrc/column_norms.cu``).
+- ``llc_probe``     — ``reps`` reads of a working set in one launch, the
+  roofline model's cache measurement (``csrc/llc_probe.cu``).
 """

@@ -28,7 +28,7 @@ SOURCES = ("greedy_update", "greedy_update_sm90", "imgs_project",
            "imgs_project_sm90", "block_sweep", "imgs_panel",
            "imgs_panel_sm90", "flash_attention", "flash_attention_sm90",
            "roq_apply", "roq_apply_sm90", "taylorf2", "taylorf2_sm90",
-           "sketch_omega")
+           "sketch_omega", "column_norms", "llc_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

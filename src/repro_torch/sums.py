@@ -10,8 +10,11 @@ CPU rounds differently in its vector body and its scalar tail).
 
 The streamed greedy build relies on it: its tiles and the resident S must
 give each column the same norms, or the two builds part at the first
-near-tie.  The greedy drivers and the refresh sum their column norms
-here; the CUDA sweep kernels give each column a fixed-order sum by
+near-tie.  The greedy drivers, MGS, the randomized range-finder and the
+refresh sum their column norms through :func:`column_norms_sq`: on a CUDA
+tensor that is the ``column_norms`` kernel (``csrc/column_norms.cu``, the
+same tree in one read of X, the same bits), on a CPU tensor the tree
+below.  The CUDA sweep kernels give each column a fixed-order sum by
 design.
 """
 
@@ -31,8 +34,8 @@ def column_sums(X: torch.Tensor) -> torch.Tensor:
 
 def column_norms_sq(X: torch.Tensor) -> torch.Tensor:
     """``sum_n |X[n, i]|^2`` per column, in the working precision;
-    ``|x|^2`` is ``re*re + im*im``."""
-    if X.is_complex():
-        re, im = X.real, X.imag
-        return column_sums(re * re + im * im)
-    return column_sums(X * X)
+    ``|x|^2`` is ``re*re + im*im``.  A CUDA tensor goes to the
+    ``column_norms`` kernel, a CPU tensor to :func:`column_sums`."""
+    from repro_torch.kernels.column_norms.ops import column_norms_sq as norms
+
+    return norms(X)

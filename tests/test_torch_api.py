@@ -70,13 +70,40 @@ def test_build_basis_matches_jax(dtype):
                                rtol=tol * 100)
 
 
-def test_auto_strategy_is_greedy(caplog):
-    S = _smooth()
+# (dtype, tau, spec fields, the strategy "auto" resolves to): the CPU row
+# of default roofs, a forced budget, a forced cache (roof-bound), both,
+# and a rank target past twice the sketch's passes
+AUTO_CASES = [
+    (np.float64, 1e-6, {}, "greedy"),
+    (np.float64, 1e-6, dict(memory_budget_bytes=1024, tile_m=40),
+     "streamed"),
+    (np.complex64, 1e-3, dict(cache_bytes=1), "block_greedy"),
+    (np.float64, 1e-6, dict(memory_budget_bytes=1024, cache_bytes=1,
+                            tile_m=40), "streamed"),
+    (np.float64, 1e-6, dict(max_k=40, cache_bytes=1, tile_m=40),
+     "randomized"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(AUTO_CASES)))
+def test_auto_strategy_matches_jax(case, caplog):
+    """strategy="auto" through both front doors: the same choice, block_p
+    and max_k in the provenance, the same rank; pivots and stop exact for
+    the greedy family; the choice logged on the port's logger."""
+    dtype, tau, kw, want = AUTO_CASES[case]
+    S = _smooth(dtype)
+    ref = japi.build_basis(source=S, tau=tau, **kw)
     with caplog.at_level("INFO", logger="repro_torch.api"):
-        b = tapi.build_basis(source=S, tau=1e-4, device="cpu")
-    assert b.provenance["strategy"] == "greedy"
-    assert b.provenance["requested_strategy"] == "auto"
-    assert "auto strategy -> 'greedy'" in caplog.text
+        port = tapi.build_basis(source=S, tau=tau, device="cpu", **kw)
+    assert port.provenance["requested_strategy"] == "auto"
+    assert f"auto strategy -> {want!r}" in caplog.text
+    for key in ("strategy", "block_p", "max_k"):
+        assert port.provenance[key] == ref.provenance[key], key
+    assert port.provenance["strategy"] == want
+    assert port.k == ref.k >= 5
+    if want != "randomized":
+        np.testing.assert_array_equal(port.pivots, ref.pivots)
+        assert port.provenance["stop"] == ref.provenance["stop"]
 
 
 @pytest.mark.parametrize("strategy", ["distributed", "randomized",

@@ -1133,3 +1133,105 @@ def test_randomized_sketch_on_cuda(cuda, dtype, power, tmp_path):
                                  **kw)
     assert torch.equal(res.Q, got.Q) and np.array_equal(res.svals,
                                                         got.svals)
+
+
+# ragged row counts of the column-norm checks: 1-3, odd levels all the way
+# up, the path's N and its neighbours, and one past the single-launch
+# limit (two launches: a partial stage, then the fold)
+NORM_ROWS = [1, 2, 3, 313, 9999, 10_000, 10_001, 30_000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", NORM_ROWS)
+def test_column_norms_kernel_is_the_tree_bitwise(cuda, dtype, n):
+    """The kernel's column norms are the plain halving tree's bit for bit,
+    on the card and against the CPU's tree, at widths that are not a
+    multiple of a CTA's columns, on a column slice of a wider matrix
+    (row stride above the width) and on a transposed view; one launch a
+    call below 25,601 rows, two above."""
+    from repro_torch.kernels.column_norms import ops as cn_ops
+    from repro_torch.kernels.column_norms.ref import column_norms_sq_ref
+
+    gen = torch.Generator().manual_seed(n)
+    wide = _rand(gen, (n, 101), dtype, cuda)
+    for X in (wide[:, :1], wide[:, :33], wide[:, 7:90], wide,
+              _rand(gen, (37, n), dtype, cuda).mT):
+        n0 = cn_ops.launches
+        got = cn_ops.column_norms_sq(X)
+        torch.cuda.synchronize()
+        assert cn_ops.launches - n0 == len(cn_ops.plan(n))
+        assert got.dtype == dtype.to_real() and got.shape == (X.shape[1],)
+        assert torch.equal(got, column_norms_sq_ref(X))
+        assert torch.equal(got.cpu(), column_norms_sq_ref(X.cpu()))
+
+
+@pytest.mark.cuda
+def test_column_norms_at_the_path_tile(cuda):
+    """The randomized and streamed paths' tile, a (10,000, 65,536)
+    complex64 column slice of a wider matrix: one launch, the tree's
+    bits, and the greedy init's norms of the whole matrix in one launch
+    with the bits of its tiles."""
+    from repro_torch.core.greedy import _column_norms_sq
+    from repro_torch.kernels.column_norms import ops as cn_ops
+    from repro_torch.kernels.column_norms.ref import column_norms_sq_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    S = torch.randn((10_000, 2 * 65_536), dtype=torch.complex64,
+                    device=cuda, generator=gen)
+    T = S[:, 65_536:]
+    n0 = cn_ops.launches
+    got = cn_ops.column_norms_sq(T)
+    whole = _column_norms_sq(S)
+    torch.cuda.synchronize()
+    assert cn_ops.launches - n0 == 2
+    assert torch.equal(got, column_norms_sq_ref(T))
+    assert torch.equal(whole[65_536:], got)
+
+
+@pytest.mark.cuda
+def test_column_norms_never_takes_the_plain_version_on_cuda(cuda,
+                                                            monkeypatch):
+    """A CUDA tensor gets the kernel, never the plain tree, through the
+    function every caller uses."""
+    from repro_torch.kernels.column_norms import ops as cn_ops
+    from repro_torch.sums import column_norms_sq
+
+    def no(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(cn_ops, "column_norms_sq_ref", no)
+    X = torch.full((5, 40), 1 + 2j, dtype=torch.complex64, device=cuda)
+    assert torch.equal(column_norms_sq(X),
+                       torch.full((40,), 25.0, device=cuda))
+
+
+@pytest.mark.cuda
+def test_llc_probe_is_one_launch(cuda, monkeypatch):
+    """reps passes of the working set in one launch, never the plain loop;
+    the partial sums add up to reps * (x . x)."""
+    from repro_torch.kernels.llc_probe import ops as lp_ops
+
+    def no(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(lp_ops, "llc_probe_ref", no)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for n, reps in ((1 << 18, 64), (1 << 22, 4), (1 << 10, 3), (4, 2)):
+        x = torch.randn((n,), generator=gen, device=cuda)
+        n0 = lp_ops.launches
+        part = lp_ops.llc_probe(x, reps)
+        torch.cuda.synchronize()
+        assert lp_ops.launches == n0 + 1
+        want = reps * float(torch.dot(x.double(), x.double()))
+        assert abs(float(part.double().sum()) - want) <= 1e-4 * want
+
+
+@pytest.mark.cuda
+def test_measured_cache_on_the_card(cuda):
+    """The working-set sweep sees the L2 cliff on the card: a positive
+    cache size, at most the largest working set."""
+    from repro_torch.api import roofline as R
+
+    cache = R._measure_cache_once(str(torch.device("cuda", 0)))
+    assert 0 < cache <= 128 << 20

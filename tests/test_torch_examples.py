@@ -23,7 +23,16 @@ def _load(name):
 def test_torch_quickstart_runs_on_cpu(capsys):
     """1500 x 900 complex128 TaylorF2 snapshots, tau 1e-6: the greedy and
     POD ranks, the reconstruction, the EIM and the artifact round trip."""
+    import jax.numpy as jnp
+
+    from repro.api import ReductionSpec
+    from repro.api.build import _auto_strategy
+
     out = _load("torch_quickstart").main(device="cpu")
+    # the default call resolves as the reference's "auto" does
+    want = _auto_strategy(ReductionSpec(source="unused"), (1500, 900),
+                          jnp.complex128)[0]
+    assert out["strategy"] == want
     assert out["k"] >= 100 and abs(out["pod_k"] - out["k"]) <= 5
     assert out["rec_j"] >= out["rec_k"] >= 100
     assert out["max_oos_err"] < 1e-2

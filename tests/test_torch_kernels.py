@@ -356,7 +356,8 @@ def _exported(name: str) -> set:
 @pytest.mark.parametrize("module", ["greedy_update", "imgs_panel",
                                     "imgs_project", "block_sweep",
                                     "flash_attention", "roq_apply",
-                                    "taylorf2"])
+                                    "taylorf2", "column_norms",
+                                    "llc_probe"])
 def test_bound_entries_are_exported(module):
     """Every C entry a wrapper binds through ctypes is exported by the
     source it loads: a renamed entry fails here, not at first use on the
@@ -625,3 +626,138 @@ def test_new_routes_take_plain_version_on_cpu(rng):
     assert (ra_ops.launches, ra_ops.launches_sm90,
             ra_ops.launches_general, tf_ops.launches,
             tf_ops.launches_sm90, tf_ops.launches_general) == counts
+
+
+# ------------------------------------------------------- column norms ----
+def _kernel_order_norms(X: torch.Tensor) -> torch.Tensor:
+    """The order in which csrc/column_norms.cu sums, on the CPU: for each
+    launch of ``plan``, every row of level L as a full binary tree of 2^L
+    leaves (a missing child below a carried row summed as +0), then the
+    remaining levels folded as the kernel folds them in shared memory."""
+    from repro_torch.kernels.column_norms import ops as cn_ops
+
+    vals, square = X, True
+    for level, final, rows in cn_ops.plan(X.shape[0]):
+        h, n = [], rows
+        for _ in range(level):
+            h.append(n >> 1)
+            n -= n >> 1
+
+        def node(d, j):
+            if d == 0:
+                if j < 0:
+                    return torch.zeros(X.shape[1], dtype=X.dtype.to_real())
+                v = vals[j]
+                if not square:
+                    return v
+                return v.real * v.real + v.imag * v.imag \
+                    if v.is_complex() else v * v
+            hh = h[d - 1]
+            a, b = (-1, -1) if j < 0 else (j, j + hh) if j < hh \
+                else (2 * hh, -1)
+            return node(d - 1, a) + node(d - 1, b)
+
+        s = torch.stack([node(level, j) for j in range(n)])
+        if not final:
+            vals, square = s, False
+            continue
+        while s.shape[0] > 1:
+            hh, odd = s.shape[0] >> 1, s.shape[0] & 1
+            top = s[:hh] + s[hh:2 * hh]
+            s = torch.cat([top, s[2 * hh:2 * hh + 1]]) if odd else top
+        return s[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 313, 801, 1601, 10_000, 10_001,
+                               30_000])
+def test_column_norm_kernel_order_is_the_tree(dtype, n):
+    """The kernel's order of operations (emulated on the CPU, launch by
+    launch of ``plan``) gives the plain tree's bits: the +0 of a missing
+    child never changes a sum, and the partial stages continue the same
+    tree."""
+    from repro_torch.kernels.column_norms.ref import column_norms_sq_ref
+
+    gen = torch.Generator().manual_seed(n)
+    X = torch.randn((n, 3), generator=gen, dtype=torch.float64)
+    if dtype.is_complex:
+        X = torch.complex(X, torch.randn((n, 3), generator=gen,
+                                         dtype=torch.float64))
+    X = X.to(dtype)
+    assert torch.equal(_kernel_order_norms(X), column_norms_sq_ref(X))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 800, 801, 1600, 1601, 10_000,
+                               12_800, 12_801, 25_600, 25_601, 10 ** 6])
+def test_column_norm_plan(n):
+    """One launch up to CAP * 2^MAX_LEVEL rows, its level the smallest
+    whose rows fit in shared memory; taller X first in partial stages of
+    level PARTIAL_LEVEL.  The path's N = 10,000 folds level 4 (625 rows,
+    80 KB a CTA)."""
+    from repro_torch.kernels.column_norms import ops as cn_ops
+
+    stages = cn_ops.plan(n)
+    level, final, rows = stages[-1]
+    assert final and all(not f for _, f, _ in stages[:-1])
+    assert cn_ops.level_rows(rows, level) <= cn_ops.CAP
+    assert level == 0 or cn_ops.level_rows(rows, level - 1) > cn_ops.CAP
+    assert (len(stages) == 1) == (n <= cn_ops.CAP * 2 ** cn_ops.MAX_LEVEL)
+    for (lv, _, r), (_, _, r_next) in zip(stages, stages[1:]):
+        assert lv == cn_ops.PARTIAL_LEVEL
+        assert r_next == cn_ops.level_rows(r, lv)
+    if n == 10_000:
+        assert stages == [(4, True, 10_000)]
+        assert cn_ops.level_rows(n, 4) * 32 * 4 == 80_000
+
+
+@pytest.mark.parametrize("dtype", LOW + HIGH)
+@pytest.mark.parametrize("shape", [(1, 5), (17, 33), (300, 700),
+                                   (1000, 100)])
+def test_column_norms_cpu_route_is_the_tree(rng, dtype, shape):
+    """On a CPU tensor the wrapper (and sums.column_norms_sq, which every
+    caller uses) is the plain tree bit for bit, launches nothing, and is
+    the reference's jnp.sum(jnp.abs(S)**2, 0) within dtype_tol; a column
+    slice of a wider matrix gives its columns' bits."""
+    from repro_torch.kernels.column_norms import ops as cn_ops
+    from repro_torch.kernels.column_norms.ref import column_norms_sq_ref
+    from repro_torch.sums import column_norms_sq
+
+    S = _mk(rng, shape, dtype)
+    X = torch.from_numpy(S)
+    n0 = cn_ops.launches
+    got = column_norms_sq(X)
+    assert cn_ops.launches == n0
+    assert torch.equal(got, column_norms_sq_ref(X))
+    assert torch.equal(cn_ops.column_norms_sq(X), got)
+    want = np.asarray(jnp.sum(jnp.abs(jnp.asarray(S)) ** 2, 0))
+    scale = float(np.max(want))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=dtype_tol(dtype, shape[0]) * scale)
+    lo = shape[1] // 3
+    assert torch.equal(column_norms_sq(X[:, lo:]), got[lo:])
+
+
+def test_column_norms_rejects_bad_input():
+    from repro_torch.kernels.column_norms import ops as cn_ops
+
+    with pytest.raises(ValueError, match="2-D"):
+        cn_ops.column_norms_sq(torch.zeros(4))
+    with pytest.raises(ValueError, match="no kernel for dtype"):
+        cn_ops.column_norms_sq(torch.zeros((4, 4), dtype=torch.int32))
+
+
+def test_llc_probe_cpu_route():
+    """On a CPU tensor the cache probe is its plain loop of torch.dot:
+    reps * (x . x), nothing launched; bad arguments raise."""
+    from repro_torch.kernels.llc_probe import ops as lp_ops
+
+    x = torch.arange(8, dtype=torch.float32)
+    n0 = lp_ops.launches
+    out = lp_ops.llc_probe(x, 3)
+    assert lp_ops.launches == n0
+    assert out.shape == (1,) and float(out.sum()) == 3 * 140.0
+    with pytest.raises(ValueError, match="float32"):
+        lp_ops.llc_probe(x.double(), 3)
+    with pytest.raises(ValueError, match="reps"):
+        lp_ops.llc_probe(x, 0)
