@@ -44,7 +44,14 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              four types, N 1 / 2 / 3 / 313 / 9,999 / 10,001, widths off a
              CTA's columns, column slices and a transposed view, at the
              paths' tile (a 65,536-column slice of S) and on the whole S;
-             llc_probe against its plain loop of dots, one launch a call
+             llc_probe against its plain loop of dots, one launch a call;
+             greedy_update_lanes (the B-lane sweep) against its plain
+             version and, lane by lane, bitwise the scalar sm90 kernel, at
+             the four types, B 1 / 3 / 16 / 17, ragged N and M, shared and
+             stacked, masked lanes and every lane masked on NaN S and q;
+             timed at the GW S shared for B 1, 2, 4, 8, 16 and stacked as
+             (8, 1,250, 131,072), beside the plain version and
+             torch.matmul / torch.bmm
   snapshots  generation of S on the card, every taylorf2_tile launch on the
              sm90 route
   build_basis  the full-width greedy build through the front door;
@@ -95,6 +102,23 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              (bitwise the named build, its quality reported); (d) a 1 GiB
              budget with roofs pinned not roof-bound: "streamed" at
              block_p 1, bitwise strategy="streamed"
+  batched_shared  a tau sweep through the front door: strategy="batched"
+             on the resident S at 8 taus above its float32 floor (between
+             the greedy build's last 9 errors, max_k 100: 8 distinct bases,
+             each stopped on tau), launches
+             counted from 0 just before it, beside the 8 scalar
+             strategy="greedy" builds: every lane bitwise its scalar build
+             (Q, R, pivots, errs, rnorms, pass counts, k, stop), one
+             greedy_update_lanes launch a lockstep round, no scalar
+             greedy_update launch, one column_norms launch (and those of
+             any lane's refresh), each lane's sampled error within 1.5x its
+             last; the two walls and the GB of S each read
+  batched_stacked  band_split(S, 8) (the full FFT of each column: 8 bands
+             of 1,250 bins) built the same way at tau 1e-4 beside the 8
+             scalar builds of the bands, with the same gates (a
+             column_norms launch a band); the set saved and loaded
+             bitwise, registered with a BasisRouter, one request a band
+             served by a ROQEngine, bitwise its direct evaluation
   streamed   the streamed driver over generated tiles at M 131,072, bitwise
              the resident build at two tilings and after a crash and
              resume; a pinned host provider's pivots those of the resident
@@ -194,6 +218,10 @@ CUT_SG_TAU = 2.7e-9
 RESUME_TILE = 16_384
 SG_K0 = 90
 # auto (d): a device budget below the resident S's 10.5 GB
+# The lockstep phases: a tau sweep of 8 lanes over the resident S (taus
+# from sweep_taus), and a band split of it into 8 bands of N / 8 frequency
+# bins.
+BATCH = 8
 AUTO_BUDGET = 1 << 30
 OMEGA_SEEDS = [0, 7, 2 ** 40 + 3]
 # a gaussian block against its plain version, relative to max(1, |omega|):
@@ -2436,6 +2464,330 @@ def auto_phase(S, dev, cols, smi, reset_counts, read_counts) -> dict:
     return launches
 
 
+# ------------------------------------------------ the lockstep build ----
+def lanes_operands(S, B, gen, dev):
+    """q in 512-byte lane rows (as the lockstep driver places them), acc
+    and norms (B, M) for a B-lane sweep of S ((N, M) shared or (B, N, M)
+    stacked)."""
+    from repro_torch.core.backend import lane_rows
+
+    N, Mx = S.shape[-2:]
+    q = lane_rows(B, (N,), S.dtype, dev)
+    q.copy_(rand(gen, (B, N), S.dtype, dev))
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    rdt = S.dtype.to_real()
+    acc = torch.rand((B, Mx), generator=gen, dtype=torch.float64).to(
+        rdt).to(dev) * 0.5
+    norms = (torch.linalg.vector_norm(S, dim=-2) ** 2).expand(
+        B, Mx).contiguous()
+    return q, acc, norms
+
+
+def check_greedy_update_lanes(q, S, acc, norms, active=None) -> float:
+    """The B-lane kernel on one input: one launch on the "lanes" route;
+    each lane bitwise the scalar route's one-lane launch on its lane (the
+    same flag: a lane's bits do not depend on B or its group, what makes
+    every lockstep lane its scalar build);
+    every lane within the stated tolerance of the plain version (c,
+    acc_out, max_res), or, with every lane masked (S and q may be NaN
+    then), bitwise it; two launches the same bits.  Returns the max abs
+    error of c against the plain version."""
+    from repro_torch.kernels.greedy_update import ops as gu_ops
+    from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
+    from repro_torch.kernels.greedy_update_lanes.ref import (
+        greedy_update_lanes_ref,
+    )
+
+    stacked = S.dim() == 3
+    n0, s0 = gl_ops.launches_lanes, gu_ops.launches_sm90
+    got = gl_ops.greedy_update_lanes(q, S, acc, norms, active)
+    again = gl_ops.greedy_update_lanes(q, S, acc, norms, active)
+    torch.cuda.synchronize()
+    check(gl_ops.launches_lanes == n0 + 2,
+          "greedy_update_lanes: a call left the lanes route")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "greedy_update_lanes: two launches differ")
+    B = q.shape[0]
+    for b in range(B):
+        one = gu_ops.greedy_update(
+            q[b], S[b] if stacked else S, acc[b], norms[b],
+            None if active is None else active[b])
+        check(all(torch.equal(x[b], y) for x, y in zip(got, one)),
+              f"greedy_update_lanes: lane {b} is not its one-lane launch's")
+    check(gu_ops.launches_sm90 == s0 + B,
+          "greedy_update_lanes: a one-lane launch left the sm90 route")
+    plain = greedy_update_lanes_ref(q, S, acc, norms, active)
+    if active is not None and not bool(active.any()):
+        check(all(torch.equal(x, y) for x, y in zip(got, plain)),
+              "greedy_update_lanes: every lane masked is not what q = 0 "
+              "gives")
+        emit("kernels", kernel="greedy_update_lanes", route="lanes",
+             layout="stacked" if stacked else "shared", dtype=str(S.dtype),
+             shape=list(S.shape), batch=B, masked=B,
+             bitwise_one_lane=True, bitwise_plain=True)
+        return 0.0
+    eps = torch.finfo(acc.dtype).eps
+    scale = float(torch.linalg.vector_norm(S, dim=-2).max())
+    tol = sum_tol(S.dtype, S.shape[-2]) * scale * float(
+        torch.linalg.vector_norm(q, dim=1).max())
+    err_c = float((got[0] - plain[0]).abs().max())
+    tol_a = 2 * float(plain[0].abs().max()) * tol + 4 * eps * float(
+        plain[1].abs().max())
+    err_a = float((got[1] - plain[1]).abs().max())
+    err_m = float((got[2] - plain[2]).abs().max())
+    tol_m = tol_a + 4 * eps * float(norms.abs().max())
+    check(err_c <= tol, f"greedy_update_lanes c: {err_c} > {tol}")
+    check(err_a <= tol_a, f"greedy_update_lanes acc_out: {err_a} > {tol_a}")
+    check(err_m <= tol_m, f"greedy_update_lanes max_res: {err_m} > {tol_m}")
+    emit("kernels", kernel="greedy_update_lanes", route="lanes",
+         layout="stacked" if stacked else "shared", dtype=str(S.dtype),
+         shape=list(S.shape), batch=B,
+         masked=0 if active is None else int((~active).sum()),
+         bitwise_one_lane=True, max_abs_err_c=err_c, tol_c=tol,
+         max_abs_err_acc=err_a, tol_acc=tol_a, max_abs_err_max=err_m,
+         tol_max=tol_m)
+    return err_c
+
+
+def greedy_update_lanes_phase(S, dev) -> dict:
+    """greedy_update_lanes against its plain version and, lane by lane,
+    its own one-lane launch (the scalar sm90 route): the four types at small ragged shapes (B 1, 3,
+    16 and 17: a second group past 16), masked lanes and all lanes masked
+    on NaN S and q (nothing read), both layouts; then at the GW cell's
+    shapes, the shared S at B 1, 2, 4, 8 and 16 and the band split's
+    stacked (8, 1,250, 131,072), timed beside the plain version and the
+    library call (``torch.matmul(q.conj(), S)``, c only; ``torch.bmm``
+    stacked).  Bytes: S read once a group of up to 16 lanes, q, acc and
+    norms read once, c and acc_out written once; operations 8 B N M (one
+    complex multiply-add an element a lane) at the FP32 rate.  Returns the
+    kernels-line entry (shared B 8) with the other timings under
+    ``by_batch`` and ``stacked``."""
+    gen = torch.Generator().manual_seed(SEED)
+    for dtype in (torch.float32, torch.complex64, torch.float64,
+                  torch.complex128):
+        step = 16 // dtype.itemsize
+        for B, n, m in ((1, 17, 128), (3, 131, 704), (16, 300, 1000),
+                        (17, 129, 4100)):
+            m -= m % step
+            for stacked in (False, True):
+                Sx = rand(gen, (B, n, m) if stacked else (n, m), dtype, dev)
+                q, acc, norms = lanes_operands(Sx, B, gen, dev)
+                check_greedy_update_lanes(q, Sx, acc, norms)
+                active = torch.arange(B, device=dev) % 3 != 1
+                check_greedy_update_lanes(q, Sx, acc, norms, active)
+                off = torch.zeros(B, dtype=torch.bool, device=dev)
+                Sx.fill_(float("nan"))
+                q.fill_(float("nan"))
+                check_greedy_update_lanes(q, Sx, acc, norms, off)
+    from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
+    from repro_torch.kernels.greedy_update_lanes.ref import (
+        greedy_update_lanes_ref,
+    )
+
+    def entry(Sx, B, reps):
+        q, acc, norms = lanes_operands(Sx, B, gen, dev)
+        stacked = Sx.dim() == 3
+        err = check_greedy_update_lanes(q, Sx, acc, norms)
+        groups = 1 if stacked else -(-B // 16)
+        nbytes = groups * Sx.nbytes + q[0].nbytes * B + 3 * acc.nbytes \
+            + acc.numel() * Sx.element_size()
+        N_ = Sx.shape[-2]
+        qc = q.conj().resolve_conj().contiguous()
+        lib = (lambda: torch.bmm(qc.unsqueeze(1), Sx)) if stacked else \
+            (lambda: torch.matmul(qc, Sx))
+        return timed("greedy_update_lanes", [B, *Sx.shape[-2:]], Sx.dtype,
+                     nbytes, macs_flops(Sx.dtype) * B * N_ * Sx.shape[-1],
+                     err, reps,
+                     lambda: gl_ops.greedy_update_lanes(q, Sx, acc, norms),
+                     lambda: greedy_update_lanes_ref(q, Sx, acc, norms), lib)
+
+    by_batch = {B: entry(S, B, 10) for B in (1, 2, 4, 8, 16)}
+    stacked = entry(S.view(BATCH, N // BATCH, M), BATCH, 10)
+    return {**by_batch[BATCH],
+            "by_batch": {str(b): e for b, e in by_batch.items()},
+            "stacked": stacked}
+
+
+def sweep_taus(errs, B) -> list[float]:
+    """A tau sweep of B lanes above S's float32 floor: one tau between each
+    pair of the greedy build's last B + 1 errors (their geometric mean),
+    largest first.  Every lane of a shared S takes the greedy build's
+    pivots, so lane b stops on tau at its own k, and the B bases differ (a
+    tau below the floor, where the rank guard stops the build, would give
+    each such lane the same basis)."""
+    e = np.asarray(errs, np.float64)[-(B + 1):]
+    return [float(np.sqrt(a * b)) for a, b in zip(e[:-1], e[1:])]
+
+
+def lane_records(res_lanes, scalars):
+    """Per-lane gates of a lockstep build against its scalar builds: the
+    front door's children (Q, R, pivots, errs, k, the lane's stop) and the
+    drivers' last states (rnorms and pass counts) bitwise."""
+    out = []
+    for b, ((child, last), (ref, ref_last)) in enumerate(zip(res_lanes,
+                                                             scalars)):
+        k = child.k
+        ok = (k == ref.k and torch.equal(child.Q, ref.Q)
+              and np.array_equal(child.R, ref.R)
+              and np.array_equal(child.pivots, ref.pivots)
+              and np.array_equal(child.errs, ref.errs)
+              and child.provenance["lane"]["stop"] == ref.provenance["stop"]
+              and torch.equal(last.rnorms[b], ref_last.rnorms)
+              and torch.equal(last.n_passes[b], ref_last.n_passes))
+        check(ok, f"lane {b}: not bitwise its scalar build (k {k} vs "
+                  f"{ref.k}, stop {child.provenance['lane']['stop']} vs "
+                  f"{ref.provenance['stop']})")
+        out.append({"k": k, "stop": ref.provenance["stop"]})
+    return out
+
+
+def batched_phase(phase, source, lanes_S, taus, dev, cols, smi,
+                  reset_counts, read_counts) -> dict:
+    """One lockstep build through the front door (``strategy="batched"``,
+    max_k 100, chunk 16; launches counted from 0 just before it) beside
+    the B scalar ``strategy="greedy"`` builds of its lanes (``lanes_S[b]``
+    at ``taus[b]``).  Gates: every lane bitwise its scalar build (Q, R,
+    pivots, errs, rnorms, pass counts, k, stop); one greedy_update_lanes
+    launch a lockstep round, all on the lanes route; no scalar
+    greedy_update launch in the lockstep build; the column norms one
+    launch a distinct S; each lane's sampled error within 1.5x its last
+    accepted error.  Returns the set, its launches and the record."""
+    from repro_torch.api import build_basis
+    from repro_torch.core.errors import per_column_errors
+
+    def last_state(box):
+        return lambda st: box.__setitem__(0, st)
+
+    box = [None]
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bset = build_basis(source=source, strategy="batched", tau=taus,
+                       max_k=MAX_K, chunk=16, device=dev,
+                       callback=last_state(box))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    lock = bset.provenance["lockstep"]
+    B = bset.batch
+    shared = bset.provenance["layout"] == "shared"
+    check(launches["greedy_update_lanes"] == lock["rounds"]
+          == launches["greedy_update_lanes_lanes"],
+          f"{phase}: greedy_update_lanes launches {launches} != the "
+          f"{lock['rounds']} lockstep rounds on the lanes route")
+    check(launches["greedy_update"] == 0,
+          f"{phase}: the scalar greedy_update launched in the lockstep "
+          f"build: {launches}")
+    # the init sums the norms once (shared) or once a lane's S; a lane's
+    # refresh sums its residuals' norms a chunk of 8,192 columns at a time
+    norms_launches = (1 if shared else B) + lock["refreshes"] * -(
+        -bset.provenance["shape"][1] // 8192)
+    check(launches["column_norms"] == norms_launches,
+          f"{phase}: column_norms launches {launches['column_norms']} != "
+          f"{norms_launches}")
+    check(launches["imgs_project"] == launches["imgs_project_sm90"] > 0,
+          f"{phase}: an imgs_project launch left the sm90 route")
+
+    scalars, seq_wall = [], 0.0
+    for b in range(B):
+        rbox = [None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = build_basis(source=lanes_S[b], strategy="greedy", tau=taus[b],
+                          max_k=MAX_K, chunk=16, device=dev,
+                          callback=last_state(rbox))
+        torch.cuda.synchronize()
+        seq_wall += time.perf_counter() - t0
+        scalars.append((ref, rbox[0]))
+    lanes = lane_records([(c, box[0]) for c in bset], scalars)
+    del scalars
+    for b, rec in enumerate(lanes):
+        sample = lanes_S[b].index_select(1, cols)
+        pce = float(per_column_errors(sample, bset[b].Q).max())
+        last = float(bset[b].errs[-1])
+        check(pce <= 1.5 * last,
+              f"{phase}: lane {b}'s sampled error {pce} > 1.5 * {last}")
+        rec.update(tau=taus[b], max_sampled_col_err=pce, last_err=last)
+    # sweeps that read a lane's S: the live steps of each build (its k,
+    # and the step whose basis a rank or tau stop drops); the lockstep
+    # shared build reads S once a live round for up to 16 lanes
+    sum_k = sum(r["k"] + (r["stop"] in ("STOP_RANK", "STOP_TAU"))
+                for r in lanes)
+    gb = lanes_S[0].nbytes / 1e9
+    record = dict(layout=bset.provenance["layout"], batch=B,
+                  shape=bset.provenance["shape"], max_k=MAX_K,
+                  wall_s=wall, sequential_wall_s=seq_wall,
+                  rounds=lock["rounds"], live_rounds=lock["live_rounds"],
+                  chunks=lock["chunks"], refreshes=lock["refreshes"],
+                  sum_k_swept=sum_k,
+                  gb_read=(lock["live_rounds"] * -(-B // 16) if shared
+                           else sum_k) * gb,
+                  sequential_gb_read=sum_k * gb, lanes=lanes,
+                  launches=launches, peak_mem_gb=peak, nvidia_smi=smi)
+    emit(phase, **record)
+    return bset, launches, record
+
+
+def batched_stacked_phase(S, dev, cols, smi, reset_counts, read_counts):
+    """The band split of the resident S (``band_split(S, 8)``: the full
+    FFT of each column, 8 bands of 1,250 bins: (8, 1,250, 131,072)
+    complex64) built at tau 1e-4 through :func:`batched_phase`; then the
+    set saved, loaded (children bitwise) and registered with a
+    BasisRouter, and one request a band served by a ROQEngine, bitwise its
+    direct evaluation."""
+    from repro_torch.api import ReducedBasisSet
+    from repro_torch.data import band_split
+    from repro_torch.serving import BasisRouter, ROQEngine, direct_interpolate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split = band_split(S, BATCH, device=dev)
+    torch.cuda.synchronize()
+    fft_s = time.perf_counter() - t0
+    check(tuple(split.stack.shape) == (BATCH, N // BATCH, M)
+          and not split.from_real and split.n_freq == N,
+          f"band_split: {tuple(split.stack.shape)}")
+    lanes_S = [split.stack[b] for b in range(BATCH)]
+    bset, launches, record = batched_phase(
+        "batched_stacked", split, lanes_S, [TAU] * BATCH, dev, cols, smi,
+        reset_counts, read_counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        bset.save(tmp)
+        back = ReducedBasisSet.load(tmp, dev)
+        check(all(x.k == y.k and torch.equal(x.Q, y.Q)
+                  and np.array_equal(x.R, y.R)
+                  and np.array_equal(x.pivots, y.pivots)
+                  and np.array_equal(x.errs, y.errs)
+                  and torch.equal(x.eim().nodes, y.eim().nodes)
+                  for x, y in zip(bset, back)),
+              "batched_stacked: the set's save / load is not bit-equal")
+        router = BasisRouter(device=dev)
+        ids = back.register(router, prefix="band")
+        engine = ROQEngine(router, max_batch=16, max_wait_ms=1.0)
+        served = 0
+        try:
+            for b, bid in enumerate(ids):
+                basis, eim = router.get(bid)
+                check(torch.equal(basis.Q, bset[b].Q),
+                      f"batched_stacked: routed band {b} is not the build's")
+                f_nodes = split.stack[b][:, int(cols[b])][eim.nodes]
+                out = engine.submit(bid, f_nodes).result(timeout=60)
+                check(torch.equal(out, direct_interpolate(eim, f_nodes)),
+                      f"batched_stacked: band {b}'s answer is not its "
+                      f"direct evaluation")
+                served += 1
+        finally:
+            engine.close()
+    emit("batched_stacked_set", fft_s=fft_s, saved_loaded_bitwise=True,
+         registered=ids, served=served, served_bitwise=True,
+         edges=[list(e) for e in split.edges])
+    del split, lanes_S, bset, back
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- main ----
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2451,6 +2803,7 @@ def main() -> None:
     from repro_torch.kernels.column_norms import ops as cn_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.greedy_update import ops as gu_ops
+    from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
     from repro_torch.kernels.imgs_panel import ops as pp_ops
     from repro_torch.kernels.imgs_project import ops as ip_ops
     from repro_torch.kernels.llc_probe import ops as lp_ops
@@ -2458,7 +2811,8 @@ def main() -> None:
     from repro_torch.kernels.sketch_omega import ops as so_ops
     from repro_torch.kernels.taylorf2 import ops as tf_ops
 
-    counters = {"greedy_update": gu_ops, "imgs_project": ip_ops,
+    counters = {"greedy_update": gu_ops, "greedy_update_lanes": gl_ops,
+                "imgs_project": ip_ops,
                 "block_sweep": bs_ops, "imgs_panel": pp_ops,
                 "flash_attention": fa_ops, "roq_apply": ra_ops,
                 "taylorf2_tile": tf_ops, "sketch_omega": so_ops,
@@ -2473,12 +2827,15 @@ def main() -> None:
             mod.launches = 0
         for name in routed:
             counters[name].launches_sm90 = counters[name].launches_general = 0
+        gl_ops.launches_lanes = gl_ops.launches_per_lane = 0
 
     def read_counts():
         counts = {name: mod.launches for name, mod in counters.items()}
         for name in routed:
             counts[name + "_sm90"] = counters[name].launches_sm90
             counts[name + "_general"] = counters[name].launches_general
+        counts["greedy_update_lanes_lanes"] = gl_ops.launches_lanes
+        counts["greedy_update_lanes_per_lane"] = gl_ops.launches_per_lane
         return counts
 
     dev = torch.device("cuda", 0)
@@ -2521,6 +2878,7 @@ def main() -> None:
          taylorf2_launches_sm90=tf_ops.launches_sm90 - n0[1])
 
     timings = kernel_phase(S, dev)
+    timings["greedy_update_lanes"] = greedy_update_lanes_phase(S, dev)
     timings.update(taylorf2_phase(dev))
     timings["sketch_omega"] = sketch_omega_phase(S, dev)
     timings["column_norms"] = column_norms_phase(S, dev)
@@ -2683,6 +3041,20 @@ def main() -> None:
     # a forced budget
     auto_launches = auto_phase(S, dev, cols, smi, reset_counts, read_counts)
 
+    # --- the lockstep many-basis build on the resident S: a tau sweep
+    # (shared), then a band split (stacked), each beside its scalar builds
+    _, shared_launches, shared = batched_phase(
+        "batched_shared", S, [S] * BATCH, sweep_taus(basis.errs, BATCH),
+        dev, cols, smi, reset_counts, read_counts)
+    ks = [r["k"] for r in shared["lanes"]]
+    check(len(set(ks)) == BATCH
+          and all(r["stop"] == "STOP_TAU" for r in shared["lanes"]),
+          f"batched_shared: the sweep's lanes are not {BATCH} distinct "
+          f"bases stopped on tau: {shared['lanes']}")
+    torch.cuda.empty_cache()
+    stacked_launches = batched_stacked_phase(S, dev, cols, smi, reset_counts,
+                                             read_counts)
+
     # --- the streamed driver: parity at this M, then the paper's M with S
     # freed (its 262 GB are never formed: tiles are generated on the card)
     streamed_phase(S, basis, f, m1, m2, dev)
@@ -2708,12 +3080,18 @@ def main() -> None:
     # an entry for each, which counts its own route's launches
     kernels = []
     for name, src, replaces, path, key in (
-            ("greedy_update", "src/repro_torch/csrc/greedy_update_sm90.cu",
+            ("greedy_update",
+             "src/repro_torch/csrc/greedy_update_lanes_sm90.cu",
              "src/repro/kernels/greedy_update/kernel.py:108,147", launches,
              "greedy_update_sm90"),
             ("greedy_update_general", "src/repro_torch/csrc/greedy_update.cu",
              "src/repro/kernels/greedy_update/kernel.py:108,147", launches,
              "greedy_update_general"),
+            ("greedy_update_lanes",
+             "src/repro_torch/csrc/greedy_update_lanes_sm90.cu",
+             "src/repro/core/backend.py:408-448 batched_pivot_update "
+             "(pallas route: greedy_update_complex per lane)",
+             shared_launches, "greedy_update_lanes_lanes"),
             ("imgs_project", "src/repro_torch/csrc/imgs_project_sm90.cu",
              "src/repro/kernels/imgs_project/kernel.py:67", launches,
              "imgs_project_sm90"),
@@ -2777,11 +3155,15 @@ def main() -> None:
                             "serve": serve_launches[key],
                             "roofline": roof_launches[key],
                             "auto_resident": auto_launches[key],
-                            "auto_paper": auto_paper_launches[key]},
+                            "auto_paper": auto_paper_launches[key],
+                            "batched_shared": shared_launches[key],
+                            "batched_stacked": stacked_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"],
+                        **{x: t[x] for x in ("by_batch", "stacked")
+                           if x in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,17 @@
     basis = build_basis(source=S, tau=1e-6)        # runs on cuda, "auto"
     basis.eim()                                    # EIM nodes + interpolant
     basis.save("artifacts/basis")                  # durable artifact
+
+    bases = build_basis(source=S, strategy="batched",
+                        tau=[1e-3, 1e-4, 1e-5])    # a ReducedBasisSet
 """
 
 from repro_torch.api.artifact import ReducedBasis
-from repro_torch.api.build import build_basis, device_memory_budget
+from repro_torch.api.basis_set import ReducedBasisSet
+from repro_torch.api.build import (
+    build_basis, build_basis_set, device_memory_budget,
+)
 from repro_torch.api.spec import STRATEGIES, ReductionSpec
 
-__all__ = ["ReductionSpec", "ReducedBasis", "build_basis", "STRATEGIES",
-           "device_memory_budget"]
+__all__ = ["ReductionSpec", "ReducedBasis", "ReducedBasisSet", "build_basis",
+           "build_basis_set", "STRATEGIES", "device_memory_budget"]

@@ -33,9 +33,12 @@ over S exceeds the last-level cache.  The model's knobs come from the spec
 ``REPRO_DRAM_BW_GBPS`` / ``REPRO_PEAK_GFLOPS`` / ``REPRO_LLC_BYTES`` env
 vars, a one-time measurement on the build's device
 (:mod:`repro_torch.api.roofline`), or per-device defaults, in that order.
-A mesh or a many-basis workload (the reference's ``"distributed"`` and
-``"batched"``) raises ``NotImplementedError``.  The choice and the numbers
-behind it are logged on logger ``repro_torch.api``.
+A many-basis workload (``batch=``, a (B, N, M), list, tuple or
+:class:`~repro_torch.data.bands.BandSplit` source) goes to
+:func:`build_basis_set`, as ``strategy="batched"`` does, and returns a
+:class:`~repro_torch.api.basis_set.ReducedBasisSet`; a mesh (the
+reference's ``"distributed"``) raises ``NotImplementedError``.  The choice
+and the numbers behind it are logged on logger ``repro_torch.api``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.artifact import ReducedBasis
-from repro_torch.api.spec import _NOT_PORTED, ReductionSpec
+from repro_torch.api.spec import ReductionSpec
 from repro_torch.device import resolve_device, torch_dtype
 
 logger = logging.getLogger("repro_torch.api")
@@ -454,8 +457,8 @@ def _is_batched_workload(spec: ReductionSpec) -> bool:
     """Does this spec describe a many-basis (B-lane) build?
 
     True when ``spec.batch`` is set, or the source is inherently B-laned:
-    a (B, N, M) stacked array, a list or tuple of per-lane sources (the
-    reference's ``BandSplit`` is a tuple).
+    a (B, N, M) stacked array, a list or tuple of per-lane sources, or a
+    :class:`~repro_torch.data.bands.BandSplit` (a tuple too).
     """
     if spec.batch is not None:
         return True
@@ -476,8 +479,19 @@ _BUILDERS = {
 }
 
 
-def build_basis(spec: ReductionSpec | None = None,
-                **kwargs) -> ReducedBasis:
+def _spec_of(spec, kwargs, caller: str) -> ReductionSpec:
+    if spec is None:
+        spec = ReductionSpec(**kwargs)
+    elif kwargs:
+        spec = dataclasses.replace(spec, **kwargs)
+    if not isinstance(spec, ReductionSpec):
+        raise TypeError(
+            f"{caller} takes a ReductionSpec (or keyword args), got "
+            f"{type(spec).__name__}")
+    return spec
+
+
+def build_basis(spec: ReductionSpec | None = None, **kwargs):
     """Build a reduced basis.
 
     Call with a :class:`ReductionSpec`, keyword arguments, or both (the
@@ -489,25 +503,22 @@ def build_basis(spec: ReductionSpec | None = None,
     Returns a :class:`ReducedBasis` trimmed to the accepted rank, with
     build provenance attached.  ``"auto"`` decides on the source's shape
     and dtype before it is materialized, so a source past the device
-    budget is streamed; on a many-basis workload (a (B, N, M) or list
-    source) it raises ``NotImplementedError``, as ``"batched"`` does.
+    budget is streamed.  A many-basis workload (``strategy="batched"``, or
+    ``"auto"`` with ``batch=`` or a (B, N, M), list, tuple or
+    :class:`~repro_torch.data.bands.BandSplit` source) goes to
+    :func:`build_basis_set` and returns its
+    :class:`~repro_torch.api.basis_set.ReducedBasisSet` of B children.
     """
-    if spec is None:
-        spec = ReductionSpec(**kwargs)
-    elif kwargs:
-        spec = dataclasses.replace(spec, **kwargs)
-    if not isinstance(spec, ReductionSpec):
-        raise TypeError(
-            f"build_basis takes a ReductionSpec (or keyword args), got "
-            f"{type(spec).__name__}")
+    spec = _spec_of(spec, kwargs, "build_basis")
 
-    # A many-basis workload would return a set: decide BEFORE touching
-    # providers (a stacked 3-D source is not a valid single-basis one).
+    # A many-basis workload returns a set: decide BEFORE touching providers
+    # (a stacked 3-D source is not a valid single-basis one).
+    if spec.strategy == "batched":
+        return build_basis_set(spec)
     if spec.strategy == "auto" and _is_batched_workload(spec):
-        raise NotImplementedError(
-            f"auto strategy -> 'batched' ({type(spec.source).__name__} "
-            f"source, batch={spec.batch}), which is not ported to "
-            f"repro_torch yet: ROADMAP.md {_NOT_PORTED['batched']}")
+        logger.info("auto strategy -> 'batched' (batch=%s, %s source)",
+                    spec.batch, type(spec.source).__name__)
+        return build_basis_set(spec)
 
     from repro_torch.core.backend import resolve_backend
     from repro_torch.data.providers import as_provider, materialize_source
@@ -595,3 +606,98 @@ def build_basis(spec: ReductionSpec | None = None,
         basis.save(spec.workdir)
         shutil.rmtree(build_dir, ignore_errors=True)
     return basis
+
+
+def build_basis_set(spec: ReductionSpec | None = None, **kwargs):
+    """Build B reduced bases in one lockstep pass.
+
+    The many-basis front door: takes a stacked (B, N, M) source, a list or
+    tuple of per-lane sources, a :class:`~repro_torch.data.bands.
+    BandSplit` (a banded workload), or a shared (N, M) source with
+    ``batch=B`` or a length-B ``tau`` (a tau sweep over one matrix).  Runs
+    :func:`repro_torch.core.batch_greedy.batch_rb_greedy` on the spec's
+    device and returns a :class:`~repro_torch.api.basis_set.
+    ReducedBasisSet` whose children are bitwise B scalar
+    ``strategy="greedy"`` builds, in both layouts.
+
+    With ``workdir=`` the finished set is saved there (``set.json`` last);
+    ``resume=True`` returns a set already finalized there without
+    rebuilding.  :func:`build_basis` delegates here for
+    ``strategy="batched"`` and for ``"auto"`` on a batched workload.
+    """
+    from repro_torch.api.basis_set import ReducedBasisSet
+    from repro_torch.core.backend import resolve_backend
+    from repro_torch.core.batch_greedy import _batched_source, batch_rb_greedy
+    from repro_torch.data.bands import BandSplit
+
+    spec = _spec_of(spec, kwargs, "build_basis_set")
+    if spec.strategy not in ("batched", "auto"):
+        raise ValueError(
+            f"build_basis_set builds the batched strategy, got "
+            f"{spec.strategy!r}")
+    device = resolve_device(spec.device)
+    if spec.workdir is not None and spec.resume:
+        try:
+            bset = ReducedBasisSet.load(spec.workdir, device)
+        except (FileNotFoundError, IOError):
+            pass  # nothing finalized yet: build below
+        else:
+            logger.info("workdir %s already holds a finalized basis set; "
+                        "returning it", spec.workdir)
+            return bset
+
+    src = spec.source
+    bands_meta = None
+    if isinstance(src, BandSplit):
+        bands_meta = {
+            "edges": [[int(lo), int(hi)] for lo, hi in src.edges],
+            "n_freq": int(src.n_freq),
+            "from_real": bool(src.from_real),
+        }
+        src = src.stack
+    S = _batched_source(src, device)
+
+    t0 = time.perf_counter()
+    res = batch_rb_greedy(
+        S, spec.tau, max_k=spec.max_k, batch=spec.batch, kappa=spec.kappa,
+        max_passes=spec.max_passes, refresh=spec.refresh,
+        refresh_safety=spec.refresh_safety, chunk=spec.chunk,
+        backend=spec.backend, callback=spec.callback, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+
+    from repro_torch import __version__
+
+    B = res.batch
+    taus = np.broadcast_to(
+        np.atleast_1d(np.asarray(spec.tau, dtype=np.float64)), (B,))
+    base = {
+        "strategy": "batched",
+        "requested_strategy": spec.strategy,
+        "backend": resolve_backend(spec.backend),
+        "device": device.type,
+        "batch": B,
+        "layout": "stacked" if S.dim() == 3 else "shared",
+        "dtype": str(S.dtype).removeprefix("torch."),
+        "shape": [int(S.shape[-2]), int(S.shape[-1])],
+        "tau": [float(t) for t in taus],
+        "max_k": spec.max_k,
+        "lockstep": {"rounds": res.rounds, "live_rounds": res.live_rounds,
+                     "chunks": res.chunks, "refreshes": res.refreshes},
+        "wall_time_s": wall,
+        "spec": spec.describe(),
+        "repro_version": __version__,
+        **({"bands": bands_meta} if bands_meta is not None else {}),
+    }
+    children = []
+    for b in range(B):
+        Q, pivots, errs, R, k, extras = _trim_greedy(res.lane(b))
+        prov = dict(base)
+        prov["lane"] = {"index": b, "tau": float(taus[b]), **extras}
+        children.append(ReducedBasis(Q=Q, pivots=pivots, errs=errs, k=k,
+                                     R=R, provenance=prov))
+    bset = ReducedBasisSet(children=tuple(children), provenance=base)
+    if spec.workdir is not None:
+        bset.save(spec.workdir)
+    return bset

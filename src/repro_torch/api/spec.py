@@ -1,10 +1,10 @@
 """`ReductionSpec`: one declarative description of a basis build.
 
 Port of :mod:`repro.api.spec`: the reference's fields, plus ``device``.
-The strategies of the reference that are not ported yet (``batched``,
-``distributed``) are named in ``STRATEGIES``; asking for one of them, or
-setting the field that selects it (``batch``, ``mesh``), raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+The strategy of the reference that is not ported yet (``distributed``) is
+named in ``STRATEGIES``; asking for it, or setting the field that selects
+it (``mesh``), raises ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports it.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ from typing import Any, Callable, Optional
 # does not fit; blocked under the same roofline test), or "randomized" (a
 # max_k is given or sketch-estimated and the roofline model predicts the
 # greedy pass count costs more than twice the sketch's 1 + 2*sketch_power
-# passes) — see repro_torch.api.build.  A many-basis workload or a mesh
-# would resolve to "batched" / "distributed", which are not ported.
+# passes) — see repro_torch.api.build.  A many-basis workload (batch=, a
+# stacked, list, tuple or BandSplit source) resolves to "batched"; a mesh
+# would resolve to "distributed", which is not ported.
 STRATEGIES = (
     "pod", "mgs", "greedy", "block_greedy", "streamed", "distributed",
     "randomized", "sketch+greedy", "batched", "auto",
@@ -28,7 +29,6 @@ STRATEGIES = (
 
 # Strategy -> the ROADMAP.md item that ports it.
 _NOT_PORTED = {
-    "batched": "queue 1 item 6 (batched many-basis greedy)",
     "distributed": "queue 1 item 7 (distributed greedy)",
 }
 
@@ -49,12 +49,16 @@ class ReductionSpec:
         range-finder: 1 + 2 * sketch_power passes over S whatever k is),
         ``"sketch+greedy"`` (that sketch, then the streamed greedy driver
         refining its basis to tau), ``"pod"`` (Algorithm 1, an SVD),
-        ``"mgs"`` (Algorithm 2, pivoted MGS), or ``"auto"``, which picks
+        ``"mgs"`` (Algorithm 2, pivoted MGS), ``"batched"`` (B bases in
+        one lockstep pass, :func:`repro_torch.api.build.build_basis_set`:
+        a (B, N, M), list, tuple or ``BandSplit`` source, or an (N, M) one
+        with ``batch`` or a length-B ``tau``), or ``"auto"``, which picks
         from the problem shape, the device-memory budget and a roofline
-        model of the device, and logs its choice.  The reference's other
-        strategies raise ``NotImplementedError``.
+        model of the device, and logs its choice.  ``"distributed"``
+        raises ``NotImplementedError``.
       tau: stopping tolerance (the paper's ``tau``; for ``pod`` the
-        smallest k with ``sigma_{k+1} < tau``).
+        smallest k with ``sigma_{k+1} < tau``); ``"batched"`` also takes
+        one a lane (a tau sweep).
       max_k: basis-size cap (default ``min(N, M)``).
       backend: hot-loop backend (:mod:`repro_torch.core.backend`):
         ``"auto" | "ref"`` or None (env/default).
@@ -110,8 +114,7 @@ class ReductionSpec:
         ``fold_in(PRNGKey(sketch_seed), tile_index)``, the JAX package's
         own stream, so builds are reproducible and resumable.
       batch: lane count B for the many-basis lockstep build
-        (``"batched"``; setting it also flips ``"auto"`` to it).  Not
-        ported: setting it raises ``NotImplementedError``.
+        (``"batched"``; setting it also flips ``"auto"`` to it).
       device: where the build runs — ``"cuda"`` (default) or ``"cpu"``.
     """
 
@@ -168,13 +171,15 @@ class ReductionSpec:
                 raise ValueError(
                     f"batch= only applies to the batched strategy "
                     f"(got strategy={self.strategy!r})")
-        for field, strategy in (("mesh", "distributed"),
-                                ("batch", "batched")):
-            if getattr(self, field) is not None:
-                raise NotImplementedError(
-                    f"{field}= selects strategy {strategy!r}, which is not "
-                    f"ported to repro_torch yet: ROADMAP.md "
-                    f"{_NOT_PORTED[strategy]}")
+        if self.strategy == "batched" and self.checkpoint_dir is not None:
+            raise ValueError(
+                "the batched strategy does not support checkpoint_dir; "
+                "use workdir= (the finished set finalizes atomically)")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"mesh= selects strategy 'distributed', which is not "
+                f"ported to repro_torch yet: ROADMAP.md "
+                f"{_NOT_PORTED['distributed']}")
 
     @classmethod
     def waveform(cls, f, m1s, m2s, dtype=None, normalize: bool = True,

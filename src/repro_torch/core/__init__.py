@@ -4,7 +4,7 @@ The recommended entry point is the front door, :mod:`repro_torch.api` —
 ``build_basis(source=S, tau=...)`` dispatches to the right engine
 (``strategy="pod" | "mgs" | "greedy" | "block_greedy" | "streamed" |
 "randomized" | "sketch+greedy" | "auto"``) and returns one
-``ReducedBasis`` artifact.
+``ReducedBasis`` artifact (``"batched"``: a ``ReducedBasisSet``).
 
 - :mod:`repro_torch.core.pod`            -- Algorithm 1 (POD via SVD).
 - :mod:`repro_torch.core.mgs`            -- Algorithm 2 (MGS with column
@@ -14,6 +14,9 @@ The recommended entry point is the front door, :mod:`repro_torch.api` —
   Hoffmann IMGS; the chunked, stepwise and fixed-length drivers).
 - :mod:`repro_torch.core.block_greedy`   -- blocked variant (p pivots per
   sweep).
+- :mod:`repro_torch.core.batch_greedy`   -- B greedy builds in lockstep
+  (``strategy="batched"``), stacked or over one shared S, each lane bitwise
+  the scalar driver.
 - :mod:`repro_torch.core.streaming`      -- the out-of-core driver: S
   streamed through the device in column tiles from a snapshot provider.
 - :mod:`repro_torch.core.randomized`     -- streamed randomized
@@ -28,6 +31,7 @@ The recommended entry point is the front door, :mod:`repro_torch.api` —
 """
 
 from repro_torch.core.backend import resolve_backend
+from repro_torch.core.batch_greedy import BatchGreedyResult, batch_rb_greedy
 from repro_torch.core.eim import eim_nodes, empirical_interpolant, roq_weights
 from repro_torch.core.greedy import (
     GreedyResult,
@@ -55,4 +59,5 @@ __all__ = [
     "roq_weights", "resolve_backend", "StreamedGreedyResult",
     "rb_greedy_streamed", "rb_randomized_streamed",
     "RandomizedSketchResult", "estimate_rank", "RankEstimate",
+    "batch_rb_greedy", "BatchGreedyResult",
 ]

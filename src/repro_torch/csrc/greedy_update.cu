@@ -1,7 +1,7 @@
 // greedy_update: the fused Eq.-(6.3) pivot-search sweep for Hopper, the
 // general route: S whose rows TMA cannot address (odd M in complex64 /
 // float64, M % 4 != 0 in float32, unaligned views); the rest takes
-// greedy_update_sm90.cu.
+// greedy_update_lanes_sm90.cu.
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/greedy_update/kernel.py
 // greedy_update_real (:108, body _kernel_real :41) and
@@ -26,7 +26,8 @@
 //     before they are used, so each thread keeps eight loads in flight.
 //   * q is staged through shared memory in chunks of QCHUNK rows.
 //   * Accumulation is in the working precision (double for f64/c128; the
-//     TPU kernel summed those in f32).
+//     TPU kernel summed those in f32), repro::conj_mul_acc a row and
+//     greedy_update.cuh's acc + |c|^2, as in the other sweep kernels.
 //   * An optional on-device flag (a bool; null means true) says whether
 //     the sweep is live.  Each block reads it first; where it is false the
 //     block skips S and writes what q = 0 gives: c = 0, acc_out = acc, and
@@ -39,22 +40,16 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "greedy_update.cuh"
 
 namespace {
+
+using repro::gu::better;
 
 constexpr int THREADS = 256;
 constexpr int QCHUNK = 1024;
 constexpr int UNROLL = 8;
 constexpr int REDUCE_THREADS = 1024;
-
-template <typename R>
-__device__ __forceinline__ void better(R& v, long long& i, R v2,
-                                       long long i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
 
 // Block-wide (max, first index); the result is valid in thread 0.
 template <typename R, int NT>
@@ -116,7 +111,7 @@ __global__ void __launch_bounds__(THREADS)
   long long i = 0x7fffffffffffffffLL;
   if (ok) {
     repro::put(c + col, re, im);
-    const R a = live ? acc[col] + (re * re + im * im) : acc[col];
+    const R a = live ? repro::gu::add_abs2(acc[col], re, im) : acc[col];
     acc_out[col] = a;
     v = norms[col] - a;
     i = col;

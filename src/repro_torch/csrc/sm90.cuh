@@ -52,8 +52,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One box of a 1-D / 2-D tensor map into shared memory; the bytes arrive
-// on `bar` (elements past the tensor's end arrive as zeros and count).
+// One box of a 1-D / 2-D / 3-D tensor map into shared memory; the bytes
+// arrive on `bar` (elements past the tensor's end arrive as zeros and
+// count).
 __device__ __forceinline__ void tma_load_1d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0) {
@@ -71,6 +72,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 

@@ -1,5 +1,6 @@
-"""Snapshot sources for the port's drivers."""
+"""Snapshot sources for the port's drivers, and the banded workload."""
 
+from repro_torch.data.bands import BandSplit, band_split
 from repro_torch.data.providers import (
     ArrayProvider,
     FaultPlan,
@@ -17,4 +18,5 @@ __all__ = [
     "SnapshotProvider", "ArrayProvider", "MemmapProvider",
     "WaveformProvider", "FaultPlan", "FaultyProvider", "as_provider",
     "materialize_source", "write_snapshot_npy", "create_snapshot_npy",
+    "BandSplit", "band_split",
 ]

@@ -3,7 +3,10 @@
 against) and ``ops.py`` (the wrapper: checks, launch, launch counter):
 
 - ``greedy_update`` — the Eq.-(6.3) pivot-search sweep
-  (``csrc/greedy_update_sm90.cu``, ``csrc/greedy_update.cu``).
+  (``csrc/greedy_update_lanes_sm90.cu`` with one lane,
+  ``csrc/greedy_update.cu``).
+- ``greedy_update_lanes`` — B lanes of that sweep in one launch, one read
+  of a shared S for up to 16 lanes (``csrc/greedy_update_lanes_sm90.cu``).
 - ``imgs_project``  — one iterated-GS pass (``csrc/imgs_project_sm90.cu``,
   ``csrc/imgs_project.cu``).
 - ``block_sweep``   — the blocked Eq.-(6.3) sweep, p bases per read of S

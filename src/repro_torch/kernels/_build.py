@@ -24,11 +24,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".kernel_build"
-SOURCES = ("greedy_update", "greedy_update_sm90", "imgs_project",
-           "imgs_project_sm90", "block_sweep", "imgs_panel",
-           "imgs_panel_sm90", "flash_attention", "flash_attention_sm90",
-           "roq_apply", "roq_apply_sm90", "taylorf2", "taylorf2_sm90",
-           "sketch_omega", "column_norms", "llc_probe")
+SOURCES = ("greedy_update", "greedy_update_lanes_sm90", "imgs_project",
+           "imgs_project_sm90", "block_sweep", "imgs_panel", "imgs_panel_sm90",
+           "flash_attention", "flash_attention_sm90", "roq_apply",
+           "roq_apply_sm90", "taylorf2", "taylorf2_sm90", "sketch_omega",
+           "column_norms", "llc_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

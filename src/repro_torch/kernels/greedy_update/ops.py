@@ -5,9 +5,9 @@ A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 one of the two kernels, by the fixed rule of :func:`kernel_route`, or
 raises:
 
-* ``"sm90"`` (``csrc/greedy_update_sm90.cu``: a TMA ring, one launch per
-  sweep) takes S whose rows are a multiple of 16 bytes, with S and q on
-  16-byte boundaries;
+* ``"sm90"`` (``csrc/greedy_update_lanes_sm90.cu`` with one lane: a TMA
+  ring, one launch per sweep) takes S whose rows are a multiple of 16
+  bytes, with S and q on 16-byte boundaries;
 * ``"general"`` (``csrc/greedy_update.cu``, the first design: two launches
   per sweep) takes the rest: odd M in complex64 / float64, M % 4 != 0 in
   float32, unaligned views.
@@ -47,13 +47,15 @@ _LIBS = {
            for sfx in DTYPE_SUFFIX.values()},
         "greedy_update_num_blocks": ([ctypes.c_longlong], ctypes.c_longlong),
     }),
-    "sm90": ("greedy_update_sm90", {
-        **{f"greedy_update_sm90_{sfx}": (
-            [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2
-            + [ctypes.c_void_p], ctypes.c_int)
+    # the B-lane sweep, which greedy_update_lanes launches for B lanes
+    "sm90": ("greedy_update_lanes_sm90", {
+        **{f"greedy_update_lanes_sm90_{sfx}": (
+            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_int] + [ctypes.c_void_p] * 10
+            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p], ctypes.c_int)
            for sfx in DTYPE_SUFFIX.values()},
-        "greedy_update_sm90_num_blocks": ([ctypes.c_longlong],
-                                          ctypes.c_longlong),
+        "greedy_update_lanes_sm90_num_blocks": ([ctypes.c_longlong],
+                                                ctypes.c_longlong),
     }),
 }
 
@@ -107,27 +109,51 @@ def _greedy_update(q, S, acc, norms_sq, active, general):
     flag = flag_ptr("greedy_update", active, dev)
     route = "general" if general else kernel_route(
         S.dtype, M, base_aligned16(S, q))
-    lib_name, signatures = _LIBS[route]
-    lib = _build.load(lib_name, signatures)
-    entry = "greedy_update_sm90" if route == "sm90" else "greedy_update"
-    nb = int(getattr(lib, f"{entry}_num_blocks")(M))
+    if route == "sm90":
+        out = launch_sm90(q, N, S, False, acc, norms_sq, flag, 1, N, M, ())
+        launches += 1
+        launches_sm90 += 1
+        return out
+    lib = _build.load(*_LIBS["general"])
+    nb = int(lib.greedy_update_num_blocks(M))
     c = torch.empty((M,), dtype=S.dtype, device=dev)
     acc_out = torch.empty((M,), dtype=rdt, device=dev)
     bmax = torch.empty((nb,), dtype=rdt, device=dev)
     bidx = torch.empty((nb,), dtype=torch.int64, device=dev)
     max_res = torch.empty((), dtype=rdt, device=dev)
     argmax = torch.empty((), dtype=torch.int64, device=dev)
-    stream = stream_ptr(dev)
-    args = [ptr(q), ptr(S), ptr(acc), ptr(norms_sq), flag, ptr(c),
-            ptr(acc_out), ptr(bmax), ptr(bidx)]
-    if route == "sm90":
-        args.append(ptr(ticket_counters(dev, stream, 1)))
-    err = getattr(lib, f"{entry}_{sfx}")(
-        *args, ptr(max_res), ptr(argmax), N, M, stream)
-    raise_on_error(lib, f"greedy_update ({route})", err)
+    err = getattr(lib, f"greedy_update_{sfx}")(
+        ptr(q), ptr(S), ptr(acc), ptr(norms_sq), flag, ptr(c), ptr(acc_out),
+        ptr(bmax), ptr(bidx), ptr(max_res), ptr(argmax), N, M,
+        stream_ptr(dev))
+    raise_on_error(lib, "greedy_update (general)", err)
     launches += 1
-    if route == "sm90":
-        launches_sm90 += 1
-    else:
-        launches_general += 1
+    launches_general += 1
+    return c, acc_out, max_res, argmax
+
+
+def launch_sm90(q, q_stride, S, stacked, acc, norms_sq, flag, B, N, M,
+                lead):
+    """One launch of ``csrc/greedy_update_lanes_sm90.cu`` on B lanes (the
+    caller has checked the operands): q's lanes ``q_stride`` elements
+    apart, S shared (N, M) or ``stacked`` (B, N, M), ``flag`` the pointer
+    of the (B,) or 0-d bool flags (or null).  Returns ``(c, acc_out,
+    max_res, argmax)`` shaped ``lead + (M,)`` and ``lead``, where ``lead``
+    is ``(B,)``, or ``()`` for one lane."""
+    dev, rdt = S.device, S.dtype.to_real()
+    lib = _build.load(*_LIBS["sm90"])
+    nb = int(lib.greedy_update_lanes_sm90_num_blocks(M))
+    c = torch.empty((*lead, M), dtype=S.dtype, device=dev)
+    acc_out = torch.empty((*lead, M), dtype=rdt, device=dev)
+    bmax = torch.empty((B, nb), dtype=rdt, device=dev)
+    bidx = torch.empty((B, nb), dtype=torch.int64, device=dev)
+    max_res = torch.empty(lead, dtype=rdt, device=dev)
+    argmax = torch.empty(lead, dtype=torch.int64, device=dev)
+    stream = stream_ptr(dev)
+    err = getattr(lib, f"greedy_update_lanes_sm90_{DTYPE_SUFFIX[S.dtype]}")(
+        ptr(q), q_stride, ptr(S), int(stacked), ptr(acc), ptr(norms_sq),
+        flag, ptr(c), ptr(acc_out), ptr(bmax), ptr(bidx),
+        ptr(ticket_counters(dev, stream, B)), ptr(max_res), ptr(argmax), B,
+        N, M, stream)
+    raise_on_error(lib, "greedy_update (sm90)", err)
     return c, acc_out, max_res, argmax

@@ -109,12 +109,16 @@ def test_auto_strategy_matches_jax(case, caplog):
 @pytest.mark.parametrize("strategy", ["distributed", "randomized",
                                       "sketch+greedy", "batched"])
 def test_unported_strategy_names_roadmap(strategy):
-    """``distributed`` and ``batched`` raise, naming their ROADMAP.md item;
-    ``randomized`` and ``sketch+greedy`` (queue 1 item 5) are ported and
-    make a spec."""
+    """``distributed`` raises, naming its ROADMAP.md item; ``randomized``
+    and ``sketch+greedy`` (queue 1 item 5) and ``batched`` (item 6) are
+    ported and make a spec."""
     if strategy in ("randomized", "sketch+greedy"):
         spec = tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)
         assert spec.strategy == strategy and spec.sketch_p == 10
+    elif strategy == "batched":
+        spec = tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy,
+                                  batch=3)
+        assert spec.strategy == "batched" and spec.batch == 3
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             tapi.ReductionSpec(source=np.zeros((4, 4)), strategy=strategy)

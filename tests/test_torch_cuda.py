@@ -1235,3 +1235,149 @@ def test_measured_cache_on_the_card(cuda):
 
     cache = R._measure_cache_once(str(torch.device("cuda", 0)))
     assert 0 < cache <= 128 << 20
+
+
+# --------------------------------------------- the B-lane sweep kernel ----
+def _lane_case(gen, dtype, B, N, M, stacked, device, q_pad=None):
+    """Lanes of the sweep's operands: q in rows ``q_pad`` elements apart
+    (default: 512-byte lane rows, as the lockstep driver places them)."""
+    from repro_torch.core.backend import lane_rows
+
+    S = _rand(gen, (B, N, M) if stacked else (N, M), dtype, device)
+    if q_pad is None:
+        q = lane_rows(B, (N,), dtype, device)
+    else:
+        q = torch.zeros(B * (N + q_pad), dtype=dtype,
+                        device=device).as_strided((B, N), (N + q_pad, 1))
+    q.copy_(_rand(gen, (B, N), dtype, device))
+    rdt = dtype.to_real()
+    acc = torch.rand((B, M), generator=gen, dtype=torch.float64).to(
+        rdt).to(device)
+    col = (S.abs() ** 2).sum(-2)
+    norms = (col if stacked else col.expand(B, M)).contiguous() + acc \
+        + torch.randperm(M, generator=gen).to(device).to(rdt)
+    return q, S, acc, norms
+
+
+def _check_lanes(q, S, acc, norms, active=None, route="lanes"):
+    """One call of the B-lane wrapper on ``route``, each lane bitwise the
+    scalar wrapper's call on its operands with its own flag (the one-lane
+    launch on the sm90 route: a lane's bits do not depend on B or its
+    group; never the plain version)."""
+    from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
+
+    stacked = S.dim() == 3
+    n0 = getattr(gl_ops, f"launches_{route}")
+    got = gl_ops.greedy_update_lanes(q, S, acc, norms, active)
+    torch.cuda.synchronize()
+    assert getattr(gl_ops, f"launches_{route}") == n0 + 1, route
+    for b in range(q.shape[0]):
+        one = gu_ops.greedy_update(
+            q[b], S[b] if stacked else S, acc[b], norms[b],
+            None if active is None else active[b])
+        for x, y in zip(got, one):
+            assert torch.equal(x[b], y), (b, route)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 15, 16, 17])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_update_lanes_bitwise_the_scalar_kernel(cuda, dtype, B,
+                                                       stacked):
+    """Each lane of the B-lane kernel is bitwise its one-lane launch (the
+    scalar sm90 route), for B 1 to 17 (a second group of lanes past 16 in
+    the shared layout), N off a stage's rows and M off a CTA's 128
+    columns."""
+    gen = torch.Generator().manual_seed(B)
+    M = 1000 if dtype.itemsize < 16 else 1001
+    M -= M % (16 // dtype.itemsize)
+    _check_lanes(*_lane_case(gen, dtype, B, 131, M, stacked, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_update_lanes_masked_lanes_read_nothing(cuda, dtype,
+                                                        stacked):
+    """A false lane gets what q = 0 gives, bitwise the scalar route's
+    false flag; with every lane false the kernel reads neither S nor q
+    (both NaN here) and still folds each lane's first-index argmax."""
+    gen = torch.Generator().manual_seed(3)
+    q, S, acc, norms = _lane_case(gen, dtype, 6, 300, 704, stacked, cuda)
+    active = torch.tensor([True, False, True, False, False, True],
+                          device=cuda)
+    got = _check_lanes(q, S, acc, norms, active)
+    assert torch.equal(got[0][1], torch.zeros_like(got[0][1]))
+    assert torch.equal(got[1][3], acc[3])
+    off = torch.zeros(6, dtype=torch.bool, device=cuda)
+    got = _check_lanes(q.fill_(float("nan")), S.fill_(float("nan")), acc,
+                       norms, off)
+    assert torch.equal(got[1], acc)
+    assert torch.equal(got[3], (norms - acc).argmax(dim=1))
+
+
+@pytest.mark.cuda
+def test_greedy_update_lanes_routes_by_shape(cuda):
+    """Odd M in complex64 (rows off 16 bytes) and q lanes off 16-byte
+    multiples go per lane, to the scalar kernel (its general route for odd
+    M), still bitwise the scalar call on each lane."""
+    gen = torch.Generator().manual_seed(4)
+    n0 = gu_ops.launches_general
+    _check_lanes(*_lane_case(gen, torch.complex64, 3, 70, 333, False, cuda),
+                 route="per_lane")
+    assert gu_ops.launches_general >= n0 + 3
+    _check_lanes(*_lane_case(gen, torch.float32, 3, 70, 256, True, cuda,
+                             q_pad=1), route="per_lane")
+
+
+@pytest.mark.cuda
+def test_greedy_update_lanes_wide_and_deterministic(cuda):
+    """At the GW path's width (M 131,072: 1,024 CTAs a lane), eight lanes
+    shared and stacked, bitwise the one-lane launches; two launches give the
+    same bits."""
+    from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
+
+    gen = torch.Generator().manual_seed(5)
+    for stacked in (False, True):
+        args = _lane_case(gen, torch.complex64, 8, 250, 131072, stacked,
+                          cuda)
+        a = _check_lanes(*args)
+        b = gl_ops.greedy_update_lanes(*args)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float64])
+def test_batched_driver_lanes_bitwise_the_scalar_builds_on_card(cuda,
+                                                                dtype):
+    """The lockstep driver on the card: every lane, in both layouts, is
+    bitwise the scalar build at its tau (the B-lane kernel's lanes are its
+    one-lane launches, the scalar route's), with one B-lane launch a
+    round."""
+    from repro_torch.core.batch_greedy import batch_rb_greedy
+    from repro_torch.core.greedy import rb_greedy
+    from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
+
+    x = np.linspace(0, 1, 200)
+    nu = np.linspace(0.5, 2.0, 128)
+    S = np.stack([np.sin(2 * np.pi * v * x) * np.exp(-v * x) for v in nu],
+                 axis=1)
+    if dtype.is_complex:
+        S = S * np.exp(1j * np.outer(x, nu))
+    S = torch.from_numpy(S).to(dtype).to(cuda)
+    scale = float(torch.linalg.vector_norm(S, dim=0).max())
+    taus = [1e-2 * scale, 1e-4 * scale, 1e-6 * scale]
+    for src in (S, torch.stack([S, S.flip(1).contiguous(), S])):
+        n0 = gl_ops.launches_lanes
+        res = batch_rb_greedy(src, taus, chunk=5, device=cuda)
+        assert gl_ops.launches_lanes - n0 == res.rounds
+        for b, tau in enumerate(taus):
+            ref = rb_greedy(src if src.dim() == 2 else src[b], tau,
+                            chunk=5, device=cuda)
+            lane = res.lane(b)
+            assert lane.k == ref.k and lane.stop == ref.stop
+            for name in ("Q", "R", "pivots", "errs", "rnorms",
+                         "n_ortho_passes"):
+                assert torch.equal(getattr(lane, name), getattr(ref, name))

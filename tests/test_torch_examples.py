@@ -1,7 +1,7 @@
 """The port's examples run end to end on the CPU (``device="cpu"``), at
 the sizes of the JAX package's ``examples/quickstart.py``,
-``examples/gw_roq.py`` and ``examples/randomized_sketch.py``, and land
-where those do."""
+``examples/gw_roq.py``, ``examples/randomized_sketch.py`` and
+``examples/banded_bases.py``, and land where those do."""
 
 import ast
 import importlib.util
@@ -74,9 +74,37 @@ def test_torch_randomized_sketch_runs_on_cpu():
     assert out["max_err_randomized"] < 1e-3
 
 
+def test_torch_banded_bases_runs_on_cpu():
+    """The reference example's chirp family (1024 x 160 float32, 8 bands
+    of 64 rFFT bins, tau 1e-5): one lockstep build of the 8 band bases,
+    the set saved, loaded and registered, one request a band served
+    bitwise its direct evaluation.  Every band stops on the rank guard in
+    both packages (tau 1e-5 is below the float32 floor of these bands);
+    the ranks agree wherever the last accepted error stands clear of that
+    noise (above 1e-4: the two top bands end near 4e-5, where the order of
+    summation decides the last pick)."""
+    from repro.api import build_basis as jax_build
+    from repro.data import band_split as jax_split
+
+    mod = _load("torch_banded_bases")
+    out = mod.main(device="cpu")
+    assert out["batch"] == 8 and out["served_bitwise"] is True
+    assert out["worst_rel_err"] < 1e-3
+    assert out["rounds"] >= max(out["ks"]) >= 10
+    ref = jax_build(source=jax_split(mod.chirp_family(), 8),
+                    strategy="batched", tau=1e-5, max_k=64)
+    assert [list(e) for e in out["edges"]] == \
+        ref.provenance["bands"]["edges"]
+    assert out["stops"] == [r.provenance["lane"]["stop"] for r in ref]
+    clear = [b for b in range(8) if float(ref[b].errs[-1]) > 1e-4]
+    assert len(clear) >= 5
+    assert [out["ks"][b] for b in clear] == [ref[b].k for b in clear]
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_gw_roq",
                                   "torch_streaming_gw",
-                                  "torch_randomized_sketch"])
+                                  "torch_randomized_sketch",
+                                  "torch_banded_bases"])
 def test_torch_examples_import_no_jax(name):
     """The port's examples import neither JAX nor the JAX package, and
     default to the card."""

@@ -27,6 +27,10 @@ from repro_torch.kernels.block_sweep import ops as bs_ops
 from repro_torch.kernels.block_sweep.ref import block_sweep_ref
 from repro_torch.kernels.greedy_update import ops as gu_ops
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
+from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
+from repro_torch.kernels.greedy_update_lanes.ref import (
+    greedy_update_lanes_ref,
+)
 from repro_torch.kernels.imgs_panel import ops as pp_ops
 from repro_torch.kernels.imgs_panel.ref import imgs_panel_ref
 from repro_torch.kernels.imgs_project import ops as ip_ops
@@ -353,7 +357,8 @@ def _exported(name: str) -> set:
             | set(re.findall(r"^\w+_ENTRY\((\w+),", src, re.M)))
 
 
-@pytest.mark.parametrize("module", ["greedy_update", "imgs_panel",
+@pytest.mark.parametrize("module", ["greedy_update", "greedy_update_lanes",
+                                    "imgs_panel",
                                     "imgs_project", "block_sweep",
                                     "flash_attention", "roq_apply",
                                     "taylorf2", "column_norms",
@@ -761,3 +766,70 @@ def test_llc_probe_cpu_route():
         lp_ops.llc_probe(x.double(), 3)
     with pytest.raises(ValueError, match="reps"):
         lp_ops.llc_probe(x, 0)
+
+
+# ------------------------------------------------- the B-lane sweep ----
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_update_lanes_ref_is_the_scalar_plain_version(rng, dtype,
+                                                            shared):
+    """The B-lane plain version is greedy_update_ref lane by lane, bit for
+    bit, masked lanes (what q = 0 gives) included; on CPU tensors the
+    wrapper and the backend primitive are that plain version and launch
+    nothing."""
+    B, N, M = 5, 40, 50
+    lanes = [_update_inputs(rng, (N, M), dtype) for _ in range(B)]
+    q, acc, norms = (torch.from_numpy(np.stack([x[i] for x in lanes]))
+                     for i in (0, 2, 3))
+    S = torch.from_numpy(lanes[0][1] if shared
+                         else np.stack([x[1] for x in lanes]))
+    active = torch.tensor([True, False, True, True, False])
+    counts = (gl_ops.launches, gu_ops.launches)
+    for flag in (None, active):
+        got = greedy_update_lanes_ref(q, S, acc, norms, flag)
+        for b in range(B):
+            one = greedy_update_ref(q[b], S if shared else S[b], acc[b],
+                                    norms[b], None if flag is None
+                                    else flag[b])
+            assert all(torch.equal(x[b], y) for x, y in zip(got, one))
+        for other in (gl_ops.greedy_update_lanes(q, S, acc, norms, flag),
+                      backend.batched_pivot_update(q, S, acc, norms,
+                                                   active=flag)):
+            assert all(torch.equal(x, y) for x, y in zip(got, other))
+    assert torch.equal(got[0][1], torch.zeros_like(got[0][1]))
+    assert torch.equal(got[1][4], acc[4])
+    assert (gl_ops.launches, gu_ops.launches) == counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64, torch.complex128])
+@pytest.mark.parametrize("M", [1, 3, 4, 33, 131072])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_greedy_update_lanes_route_rule(dtype, M, aligned):
+    """The B-lane kernel takes the scalar sm90 route's shapes (rows of S a
+    multiple of 16 bytes, aligned S and q lanes); the rest goes per lane,
+    to the scalar wrapper's own rule."""
+    want = ("lanes" if aligned and M * dtype.itemsize % 16 == 0
+            else "per_lane")
+    assert gl_ops.kernel_route(dtype, M, aligned) == want
+    assert (want == "lanes") == (
+        gu_ops.kernel_route(dtype, M, aligned) == "sm90")
+
+
+def test_lane_rows_place_each_lane_as_a_fresh_tensor():
+    """The lockstep driver's lane stacks: each lane a contiguous tensor
+    starting LANE_ALIGN bytes past the previous one at least, so its
+    16-byte TMA boxes and the card's reductions see what a fresh tensor
+    gives them."""
+    for dtype, shape in ((torch.complex64, (17,)), (torch.float32, (3, 5)),
+                         (torch.complex128, (1,))):
+        x = backend.lane_rows(4, shape, dtype, torch.device("cpu"))
+        assert tuple(x.shape) == (4, *shape) and not x.any()
+        step = x.stride(0) * x.element_size()
+        assert step % backend.LANE_ALIGN == 0 and x.stride(0) >= x[0].numel()
+        assert all(x[b].is_contiguous() for b in range(4))
+        y = backend.stack_lanes(torch.arange(4 * x[0].numel()).reshape(
+            4, *shape).to(dtype))
+        assert y.stride() == x.stride()
+        assert torch.equal(y, torch.arange(4 * x[0].numel()).reshape(
+            4, *shape).to(dtype))

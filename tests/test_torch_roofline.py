@@ -429,8 +429,8 @@ def test_cache_cliff_rule(monkeypatch, rates, want):
 
 def test_spec_takes_the_reference_fields():
     """The roofline knobs are the reference's fields with its defaults,
-    describe() serializes them, and batch / mesh raise the items that
-    port them after the reference's own validation."""
+    describe() serializes them; batch is validated as the reference does
+    it and makes a spec (item 6 is ported), mesh raises item 7."""
     spec = tapi.ReductionSpec(source=np.zeros((4, 4)),
                               memory_budget_bytes=123, cache_bytes=7)
     d = spec.describe()
@@ -443,8 +443,8 @@ def test_spec_takes_the_reference_fields():
         tapi.ReductionSpec(source="x", batch=0)
     with pytest.raises(ValueError, match="only applies to the batched"):
         tapi.ReductionSpec(source="x", strategy="greedy", batch=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tapi.ReductionSpec(source="x", batch=2)
+    assert tapi.ReductionSpec(source="x", batch=2).batch == 2
+    assert tapi.ReductionSpec(source="x", batch=2).describe()["batch"] == 2
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         tapi.ReductionSpec(source="x", mesh=object())
 
@@ -452,16 +452,34 @@ def test_spec_takes_the_reference_fields():
 @pytest.mark.parametrize("source", ["stack", "list", "tuple"])
 def test_auto_on_a_batched_workload_names_the_batched_item(source):
     """A (B, N, M), list or tuple source is a many-basis workload in both
-    packages; the port's "auto" raises item 6's NotImplementedError
-    instead of building one basis."""
+    packages; "auto" delegates it to the batched strategy (item 6) in
+    both, and the lanes are the reference's: rank, stop and pivots exact,
+    Q within the tolerance of the parity tests."""
+    from conftest import dtype_tol
     from repro.api.build import _is_batched_workload as jax_batched
     from repro_torch.api.build import _is_batched_workload
 
     S = _S(np.float64)
-    src = {"stack": np.stack([S, S]), "list": [S, S],
-           "tuple": (S, S)}[source]
+    S2 = S[:, ::-1].copy()
+    src = {"stack": np.stack([S, S2]), "list": [S, S2],
+           "tuple": (S, S2)}[source]
     assert jax_batched(japi.ReductionSpec(source=src))
     assert _is_batched_workload(tapi.ReductionSpec(source=src))
     assert not _is_batched_workload(tapi.ReductionSpec(source=S))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tapi.build_basis(source=src, tau=TAU, device=CPU)
+    port = tapi.build_basis(source=src, tau=TAU, device=CPU)
+    jsrc = jnp.asarray(src) if source == "stack" else type(src)(
+        jnp.asarray(x) for x in src)
+    ref = japi.build_basis(source=jsrc, tau=TAU)
+    assert isinstance(port, tapi.ReducedBasisSet)
+    assert port.provenance["strategy"] == ref.provenance["strategy"] \
+        == "batched"
+    assert port.provenance["layout"] == ref.provenance["layout"] \
+        == "stacked"
+    assert port.batch == ref.batch == 2
+    for b in range(2):
+        assert port[b].k == ref[b].k >= 5
+        assert port[b].provenance["lane"]["stop"] \
+            == ref[b].provenance["lane"]["stop"]
+        np.testing.assert_array_equal(port[b].pivots, ref[b].pivots)
+        np.testing.assert_allclose(port[b].Q.numpy(), np.asarray(ref[b].Q),
+                                   atol=dtype_tol(np.float64, S.shape[0]))

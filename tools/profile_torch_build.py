@@ -4,8 +4,10 @@
         [--trace PATH]
 
 Builds the same GW snapshot matrix as ``chip_smoke.py`` (N = 10,000,
-M = 131,072, complex64), runs ``build_basis(strategy=...)`` (``greedy``, or
-``block_greedy`` at the smoke's block_p) twice
+M = 131,072, complex64), runs ``build_basis(strategy=...)`` (``greedy``,
+``block_greedy`` at the smoke's block_p, ``batched``: the smoke's tau sweep
+of 8 lanes over S above its floor, or ``batched_bands``: its band split of S into 8
+stacked lanes at tau 1e-4) twice
 untraced (cold, then warm) and once under ``torch.profiler``, and prints one
 JSON line with the kernels' build time, the first (cold) and second
 (warm) build times, the traced build's device busy share (union of kernel
@@ -64,7 +66,8 @@ def main() -> None:
     ap.add_argument("--trace", default=None,
                     help="keep the Chrome trace at this path")
     ap.add_argument("--strategy", default="greedy",
-                    choices=("greedy", "block_greedy"))
+                    choices=("greedy", "block_greedy", "batched",
+                             "batched_bands"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_build: no CUDA device")
@@ -82,11 +85,21 @@ def main() -> None:
         *chirp_grid(n_mc=cs.N_MC, n_eta=cs.N_ETA), device="cuda")
 
     block_p = cs.BLOCK_P if args.strategy == "block_greedy" else 1
+    strategy, source, tau = args.strategy, S, cs.TAU
+    if strategy == "batched":
+        # the smoke's sweep: taus between the greedy build's last errors
+        tau = cs.sweep_taus(build_basis(
+            source=S, strategy="greedy", tau=cs.TAU, max_k=cs.MAX_K,
+            chunk=16).errs, cs.BATCH)
+    elif strategy == "batched_bands":
+        from repro_torch.data import band_split
+
+        strategy, source = "batched", band_split(S, cs.BATCH)
 
     def build():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        b = build_basis(source=S, strategy=args.strategy, tau=cs.TAU,
+        b = build_basis(source=source, strategy=strategy, tau=tau,
                         max_k=cs.MAX_K, chunk=16, block_p=block_p)
         torch.cuda.synchronize()
         return b, time.perf_counter() - t0
@@ -105,7 +118,10 @@ def main() -> None:
         stats = kernel_stats(trace, traced_s * 1e6)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "strategy": args.strategy, "block_p": block_p, "k": again.k,
+        "strategy": args.strategy, "block_p": block_p,
+        "k": [c.k for c in again] if strategy == "batched" else again.k,
+        **({"lockstep": again.provenance["lockstep"]}
+           if strategy == "batched" else {}),
         "build_kernels_s": build_kernels_s,
         "first_build_s": first_s, "warm_build_s": again_s,
         "traced_build_s": traced_s, **stats}), flush=True)
