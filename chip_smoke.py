@@ -119,6 +119,22 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              column_norms launch a band); the set saved and loaded
              bitwise, registered with a BasisRouter, one request a band
              served by a ROQEngine, bitwise its direct evaluation
+  distributed  the column-distributed greedy (the paper's Sec. 6 system)
+             on the same S through the front door with a mesh: (a) one
+             rank in this process over NCCL ("auto" with a mesh picks
+             "distributed"), the greedy path's checks, every greedy_update
+             and imgs_project launch on the sm90 route, its pivots the
+             greedy build's on the shared prefix and its errs bitwise up to
+             the first refresh; the blocked one (block_p 8) beside it; (b)
+             four ranks spawned on the same card over gloo, each
+             generating its 32,768 columns with taylorf2_tile: k, stop,
+             pivots, errs and Q bitwise (a)'s, launches counted from 0 on
+             each rank and summed; a step taken apart (sweep and GS by
+             CUDA events, the exchange and the column fetch on the host's
+             clock) on (a) and on each rank; (c) their blocked build: k and
+             pivots (a)'s blocked ones; (d) a 4-rank build checkpointed
+             after two chunks and resumed on 2 ranks: k, stop, pivots and
+             errs bitwise (b)'s
   streamed   the streamed driver over generated tiles at M 131,072, bitwise
              the resident build at two tilings and after a crash and
              resume; a pinned host provider's pivots those of the resident
@@ -2788,6 +2804,350 @@ def batched_stacked_phase(S, dev, cols, smi, reset_counts, read_counts):
     return launches
 
 
+# ------------------------------------------------------ launch counts ----
+# the wrappers that route between two kernels count each route apart
+ROUTED = ("greedy_update", "imgs_project", "imgs_panel", "flash_attention",
+          "roq_apply", "taylorf2_tile")
+
+
+def counters() -> dict:
+    """Each kernel's wrapper module (its ``launches`` counters)."""
+    from repro_torch.kernels.block_sweep import ops as bs_ops
+    from repro_torch.kernels.column_norms import ops as cn_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.greedy_update import ops as gu_ops
+    from repro_torch.kernels.greedy_update_lanes import ops as gl_ops
+    from repro_torch.kernels.imgs_panel import ops as pp_ops
+    from repro_torch.kernels.imgs_project import ops as ip_ops
+    from repro_torch.kernels.llc_probe import ops as lp_ops
+    from repro_torch.kernels.roq_apply import ops as ra_ops
+    from repro_torch.kernels.sketch_omega import ops as so_ops
+    from repro_torch.kernels.taylorf2 import ops as tf_ops
+
+    return {"greedy_update": gu_ops, "greedy_update_lanes": gl_ops,
+            "imgs_project": ip_ops, "block_sweep": bs_ops,
+            "imgs_panel": pp_ops, "flash_attention": fa_ops,
+            "roq_apply": ra_ops, "taylorf2_tile": tf_ops,
+            "sketch_omega": so_ops, "column_norms": cn_ops,
+            "llc_probe": lp_ops}
+
+
+def reset_counts() -> None:
+    mods = counters()
+    for mod in mods.values():
+        mod.launches = 0
+    for name in ROUTED:
+        mods[name].launches_sm90 = mods[name].launches_general = 0
+    gl = mods["greedy_update_lanes"]
+    gl.launches_lanes = gl.launches_per_lane = 0
+
+
+def read_counts() -> dict:
+    mods = counters()
+    counts = {name: mod.launches for name, mod in mods.items()}
+    for name in ROUTED:
+        counts[name + "_sm90"] = mods[name].launches_sm90
+        counts[name + "_general"] = mods[name].launches_general
+    gl = mods["greedy_update_lanes"]
+    counts["greedy_update_lanes_lanes"] = gl.launches_lanes
+    counts["greedy_update_lanes_per_lane"] = gl.launches_per_lane
+    return counts
+
+
+def sum_counts(per_rank: list) -> dict:
+    return {key: sum(c[key] for c in per_rank) for key in per_rank[0]}
+
+
+# --------------------------------------------------------- distributed ----
+DIST_RANKS = 4                    # ranks of the spawned group (b)-(d)
+DIST_RESUME_RANKS = 2             # ranks that resume its checkpoint (d)
+DIST_STOP_CHUNKS = 2              # chunks checkpointed before it stops
+DIST_PROFILE_STEPS = 8            # steps of the split step profile
+
+
+class _StopBuild(RuntimeError):
+    """Raised by every rank's callback to end a build mid-way."""
+
+
+def step_profile(S_loc, M_total, steps=DIST_PROFILE_STEPS) -> dict:
+    """One distributed step taken apart, on a fresh state over this rank's
+    shard: the local sweep (greedy_update) and GS (imgs_project passes)
+    timed with CUDA events, the pivot exchange and the column fetch (the
+    collectives) on the host's clock with the card synced around them,
+    each after a barrier whose own time (``wait_ms``: the other ranks
+    still sweeping, when they share the card) is kept apart.  Medians over
+    ``steps`` steps, in ms."""
+    import torch.distributed as dist
+
+    from repro_torch.core import backend as B
+    from repro_torch.core import distributed as D
+    from repro_torch.core.greedy import imgs_orthogonalize
+
+    lay = D._Layout(dist.get_world_size(), dist.get_rank(),
+                    tuple(range(dist.get_world_size())),
+                    M_total // dist.get_world_size())
+    st = D.dist_greedy_init(S_loc, steps)
+    times = {"wait_ms": [], "exchange_ms": [], "fetch_ms": [], "gs_ms": [],
+             "sweep_ms": []}
+
+    def host(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D._barrier(S_loc.device)
+        torch.cuda.synchronize()
+        times["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def card(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    for step in range(steps):
+        res = torch.clamp(st.norms_sq - st.acc, min=0.0)
+        (_, j, j_loc, owner), t = host(lambda: D._exchange_pivot(res, lay))
+        times["exchange_ms"].append(t)
+        v, t = host(lambda: D._fetch_columns(S_loc, j_loc.view(1),
+                                             owner.view(1)).squeeze(1))
+        times["fetch_ms"].append(t)
+        (q, _, _, _), t = card(lambda: imgs_orthogonalize(v, st.Q))
+        times["gs_ms"].append(t)
+        (c, acc, _, _), t = card(lambda: B.pivot_update(q, S_loc, st.acc,
+                                                        st.norms_sq))
+        times["sweep_ms"].append(t)
+        st.Q[:, step] = q
+        st.acc.copy_(acc)
+    return {key: float(np.median(v)) for key, v in times.items()}
+
+
+def time_checkpoints(times: list) -> None:
+    """Time every checkpoint of the distributed driver in this process
+    (the gather to the mesh's rank 0, its write, the barrier after), on
+    the host's clock with the card synced around it: appends ``{"k",
+    "ms"}`` to ``times`` per save."""
+    from repro_torch.core import distributed as D
+
+    save = D._save_dist_checkpoint
+
+    def timed(directory, seq, state, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(directory, seq, state, *args, **kw)
+        torch.cuda.synchronize()
+        times.append({"k": int(state.k),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    D._save_dist_checkpoint = timed
+
+
+def distributed_rank(f, m1, m2, part, ckpt_dir):
+    """Rank program of the phase distributed (spawned, the ranks sharing
+    the card over gloo): each rank generates only its own columns of the
+    chirp grid with taylorf2_tile and builds through the front door.
+    ``part`` "four": (b) the greedy build, its step profile, (c) the
+    blocked build, (d) a build stopped after DIST_STOP_CHUNKS
+    checkpointed chunks; "two": (d) its resume.  Launches are counted from
+    0 just before each build, on each rank."""
+    import torch.distributed as dist
+
+    from repro_torch.api import build_basis, make_auto_mesh
+    from repro_torch.data.providers import WaveformProvider
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world, rank = dist.get_world_size(), dist.get_rank()
+    prov = WaveformProvider(f, m1, m2, dtype=torch.complex64, device=dev)
+    mesh = make_auto_mesh((world,), ("cols",), "cuda")
+    common = dict(source=prov, tau=TAU, max_k=MAX_K, chunk=16, mesh=mesh,
+                  device=dev)
+
+    def build(**spec):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = build_basis(**common, **spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {"k": b.k, "stop": b.provenance["stop"],
+               "strategy": b.provenance["strategy"], "wall_s": wall,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "pivots": np.asarray(b.pivots), "errs": np.asarray(b.errs),
+               "launches": read_counts()}
+        if rank == 0:
+            rec["Q"] = b.Q.cpu().numpy()
+        return rec
+
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "ckpt": []}
+    time_checkpoints(out["ckpt"])
+    if part == "two":
+        out["resumed"] = build(checkpoint_dir=ckpt_dir, resume=True)
+        return out
+    out["greedy"] = build()
+    lo, hi = rank * (M // world), (rank + 1) * (M // world)
+    out["step"] = step_profile(prov.tile(lo, hi), M)
+    torch.cuda.empty_cache()
+    out["blocked"] = build(block_p=BLOCK_P)
+    seen = []
+
+    def stop_after(state):
+        seen.append(int(state.k))
+        if len(seen) > DIST_STOP_CHUNKS:
+            raise _StopBuild
+
+    try:
+        build(checkpoint_dir=ckpt_dir, callback=stop_after)
+    except _StopBuild:
+        out["stopped_at_k"] = seen[DIST_STOP_CHUNKS - 1]
+    return out
+
+
+def distributed_phase(S, basis, f, m1, m2, dev, drive):
+    """The column-distributed greedy on the GW cell's S: (a) one rank in
+    this process over NCCL, greedy then blocked, through ``drive``; (b)
+    four spawned ranks sharing the card over gloo, each generating its
+    32,768 columns, bitwise (a); (c) their blocked build, its k and
+    pivots (a)'s blocked ones; (d) a 4-rank build checkpointed after two
+    chunks and resumed on 2 ranks, bitwise (b).  Returns the launches of
+    the greedy and the blocked path, summed over the four ranks."""
+    from repro_torch.compat import make_auto_mesh
+    from repro_torch.launch.mesh import close_ranks, init_ranks, spawn_ranks
+    from repro_torch.sums import column_norms_sq
+
+    ref_sq = float(column_norms_sq(S).max())
+    ranks = init_ranks(device="cuda")
+    try:
+        check(ranks.backend == "nccl" and ranks.world_size == 1,
+              f"distributed: one rank took {ranks.backend}")
+        mesh = make_auto_mesh((1,), ("cols",), "cuda")
+        a, a_launches = drive("distributed_nccl", "greedy_update", True,
+                              ("greedy_update", "imgs_project",
+                               "column_norms"),
+                              ("greedy_update", "imgs_project"), mesh=mesh)
+        a_blk, a_blk_launches = drive(
+            "distributed_blocked_nccl", "block_sweep", False,
+            ("block_sweep", "imgs_panel", "imgs_project", "column_norms"),
+            ("imgs_panel", "imgs_project"), mesh=mesh, block_p=BLOCK_P)
+        a_step = step_profile(S, M)
+    finally:
+        close_ranks()
+    check(a.provenance["strategy"] == a_blk.provenance["strategy"]
+          == "distributed", "distributed: auto with a mesh did not pick it")
+    # (a) against the greedy build: pivots on the shared prefix, errs
+    # bitwise up to the first refresh (the first err^2 under the refresh
+    # trigger, 100 eps ref^2, the drivers' default safety)
+    shared = min(a.k, basis.k)
+    eps = torch.finfo(torch.float32).eps
+    trig = np.nonzero(basis.errs.astype(np.float64) ** 2
+                      < 100.0 * eps * ref_sq)[0]
+    first_refresh = int(trig[0]) + 1 if trig.size else basis.k
+    check(np.array_equal(a.pivots[:shared], basis.pivots[:shared]),
+          "distributed: (a)'s pivots are not the greedy build's")
+    upto = min(shared, first_refresh)
+    check(np.array_equal(a.errs[:upto], basis.errs[:upto]),
+          "distributed: (a)'s errs are not the greedy build's before the "
+          "first refresh")
+
+    # spawn_ranks builds the kernels before the spawn: the ranks only load
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        four = spawn_ranks(distributed_rank, DIST_RANKS,
+                           (f, m1, m2, "four", ckpt), device="cuda",
+                           timeout_s=420)
+        four_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = spawn_ranks(distributed_rank, DIST_RESUME_RANKS,
+                          (f, m1, m2, "two", ckpt), device="cuda",
+                          timeout_s=300)
+        two_s = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" for r in four + two),
+          "distributed: ranks sharing the card did not take gloo")
+    b0 = four[0]["greedy"]
+    for r in four:
+        g = r["greedy"]
+        check(g["strategy"] == "distributed" and g["k"] == a.k
+              and g["stop"] == a.provenance["stop"]
+              and np.array_equal(g["pivots"], a.pivots)
+              and np.array_equal(g["errs"], a.errs),
+              f"distributed: (b) rank {r['rank']} is not (a): k {g['k']} "
+              f"vs {a.k}")
+        for key in ("greedy", "blocked"):
+            n = r[key]["launches"]
+            check(n["greedy_update_sm90"] == n["greedy_update"]
+                  and n["imgs_project_sm90"] == n["imgs_project"]
+                  and n["imgs_panel_sm90"] == n["imgs_panel"],
+                  f"distributed: (b) rank {r['rank']} left an sm90 route")
+        c = r["blocked"]
+        check(c["k"] == a_blk.k and np.array_equal(c["pivots"],
+                                                   a_blk.pivots),
+              f"distributed: (c) rank {r['rank']}'s blocked build is not "
+              f"(a)'s: k {c['k']} vs {a_blk.k}")
+        check(r["stopped_at_k"] == 16 * DIST_STOP_CHUNKS,
+              f"distributed: (d) stopped at k {r['stopped_at_k']}")
+    check(torch.equal(torch.from_numpy(b0["Q"]).to(dev), a.Q),
+          "distributed: (b)'s Q is not (a)'s")
+    for r in two:
+        d = r["resumed"]
+        check(d["k"] == b0["k"] and d["stop"] == b0["stop"]
+              and np.array_equal(d["pivots"], b0["pivots"])
+              and np.array_equal(d["errs"], b0["errs"]),
+              f"distributed: (d) rank {r['rank']}'s resumed build is not "
+              f"(b)'s")
+    q_elastic = bool(np.array_equal(two[0]["resumed"]["Q"], b0["Q"]))
+    dist_launches = sum_counts([r["greedy"]["launches"] for r in four])
+    blk_launches = sum_counts([r["blocked"]["launches"] for r in four])
+    for name, n in (("greedy", dist_launches), ("blocked", blk_launches)):
+        check(n["column_norms"] > 0 and n["imgs_project"] > 0
+              and (n["greedy_update"] > 0 if name == "greedy"
+                   else n["block_sweep"] > 0 and n["imgs_panel"] > 0),
+              f"distributed: a kernel of the {name} path was not launched "
+              f"on the ranks: {n}")
+    emit("distributed", cell="gw-distributed-h100-1chip", n=N, m=M,
+         max_k=MAX_K, tau=TAU,
+         a_nccl={"k": a.k, "stop": a.provenance["stop"],
+                 "wall_s": a.provenance["wall_time_s"],
+                 "greedy_k": basis.k, "shared_prefix": shared,
+                 "first_refresh": first_refresh,
+                 "errs_bitwise_to": upto,
+                 "errs_bitwise_prefix": bool(np.array_equal(
+                     a.errs[:shared], basis.errs[:shared])),
+                 "step_ms": a_step, "launches": a_launches},
+         b_gloo={"ranks": DIST_RANKS, "k": b0["k"], "stop": b0["stop"],
+                 "bitwise_a": True,
+                 "wall_s": [r["greedy"]["wall_s"] for r in four],
+                 "step_ms": [r["step"] for r in four],
+                 "peak_mem_gb": [r["greedy"]["peak_mem_gb"] for r in four],
+                 "group_s": four_s},
+         c_blocked={"block_p": BLOCK_P, "k_p1": a_blk.k,
+                    "k_p4": four[0]["blocked"]["k"],
+                    "stop_p4": four[0]["blocked"]["stop"],
+                    "wall_s_p1": a_blk.provenance["wall_time_s"],
+                    "wall_s_p4": [r["blocked"]["wall_s"] for r in four],
+                    "pivots_equal": True},
+         d_elastic={"stopped_at_k": four[0]["stopped_at_k"],
+                    "resumed_on": DIST_RESUME_RANKS,
+                    "k": two[0]["resumed"]["k"], "pivots_errs_equal": True,
+                    "Q_bitwise": q_elastic, "group_s": two_s,
+                    "ckpt_ms_p4": [r["ckpt"] for r in four],
+                    "ckpt_ms_p2": [r["ckpt"] for r in two],
+                    "peak_mem_gb_p2": [r["resumed"]["peak_mem_gb"]
+                                       for r in two]},
+         launches_by_rank=[r["greedy"]["launches"] for r in four],
+         launches=dist_launches, blocked_launches=blk_launches)
+    del a, a_blk
+    torch.cuda.empty_cache()
+    return dist_launches, blk_launches
+
+
 # ---------------------------------------------------------------- main ----
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2810,33 +3170,6 @@ def main() -> None:
     from repro_torch.kernels.roq_apply import ops as ra_ops
     from repro_torch.kernels.sketch_omega import ops as so_ops
     from repro_torch.kernels.taylorf2 import ops as tf_ops
-
-    counters = {"greedy_update": gu_ops, "greedy_update_lanes": gl_ops,
-                "imgs_project": ip_ops,
-                "block_sweep": bs_ops, "imgs_panel": pp_ops,
-                "flash_attention": fa_ops, "roq_apply": ra_ops,
-                "taylorf2_tile": tf_ops, "sketch_omega": so_ops,
-                "column_norms": cn_ops, "llc_probe": lp_ops}
-
-    # the wrappers that route between two kernels count each route apart
-    routed = ("greedy_update", "imgs_project", "imgs_panel",
-              "flash_attention", "roq_apply", "taylorf2_tile")
-
-    def reset_counts():
-        for mod in counters.values():
-            mod.launches = 0
-        for name in routed:
-            counters[name].launches_sm90 = counters[name].launches_general = 0
-        gl_ops.launches_lanes = gl_ops.launches_per_lane = 0
-
-    def read_counts():
-        counts = {name: mod.launches for name, mod in counters.items()}
-        for name in routed:
-            counts[name + "_sm90"] = counters[name].launches_sm90
-            counts[name + "_general"] = counters[name].launches_general
-        counts["greedy_update_lanes_lanes"] = gl_ops.launches_lanes
-        counts["greedy_update_lanes_per_lane"] = gl_ops.launches_per_lane
-        return counts
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3055,6 +3388,11 @@ def main() -> None:
     stacked_launches = batched_stacked_phase(S, dev, cols, smi, reset_counts,
                                              read_counts)
 
+    # --- the column-distributed greedy on the resident S: one NCCL rank
+    # here, then ranks spawned on the same card over gloo
+    dist_launches, dist_blk_launches = distributed_phase(
+        S, basis, f, m1, m2, dev, drive)
+
     # --- the streamed driver: parity at this M, then the paper's M with S
     # freed (its 262 GB are never formed: tiles are generated on the card)
     streamed_phase(S, basis, f, m1, m2, dev)
@@ -3157,7 +3495,9 @@ def main() -> None:
                             "auto_resident": auto_launches[key],
                             "auto_paper": auto_paper_launches[key],
                             "batched_shared": shared_launches[key],
-                            "batched_stacked": stacked_launches[key]},
+                            "batched_stacked": stacked_launches[key],
+                            "distributed": dist_launches[key],
+                            "distributed_blocked": dist_blk_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

@@ -1,7 +1,7 @@
 """`build_basis`: the front door of the port.
 
-Port of :mod:`repro.api.build` for the resident strategies and the
-streamed ones: ``greedy`` runs :func:`repro_torch.core.greedy.rb_greedy`,
+Port of :mod:`repro.api.build`: ``greedy`` runs
+:func:`repro_torch.core.greedy.rb_greedy`,
 ``block_greedy`` :func:`repro_torch.core.block_greedy.
 _rb_greedy_block_impl`, ``streamed``
 :func:`repro_torch.core.streaming.rb_greedy_streamed`, ``randomized``
@@ -9,8 +9,11 @@ _rb_greedy_block_impl`, ``streamed``
 result: no pivots, the errs are the singular-value estimates) and
 ``sketch+greedy`` that sketch refined to tau by the streamed greedy driver
 (the streamed strategies over the source's provider, never materialized),
-so the artifact's arrays equal the driver's (trimmed) output; the paper's
-oracles ``pod``
+so the artifact's arrays equal the driver's (trimmed) output;
+``distributed`` runs :func:`repro_torch.core.distributed.
+distributed_greedy` on every rank of ``spec.mesh``, each rank
+materializing only its own columns of the source; the paper's oracles
+``pod``
 (:func:`repro_torch.core.pod.pod`) and ``mgs``
 (:func:`repro_torch.core.mgs._mgs_pivoted_qr_impl`) run through the same
 door.
@@ -19,6 +22,7 @@ Strategy ``"auto"`` picks the driver from the problem shape, a
 device-memory budget and a DRAM-roofline model of the device, as the
 reference does, before anything is materialized:
 
+  a mesh was given                   -> "distributed" (no roofline work)
   roof-bound, max_k set, greedy pass
     count > 2x the sketch's          -> "randomized" (one-pass range-finder)
   fits budget, sweep roof-bound      -> "block_greedy" (blocked sweep)
@@ -36,9 +40,8 @@ vars, a one-time measurement on the build's device
 A many-basis workload (``batch=``, a (B, N, M), list, tuple or
 :class:`~repro_torch.data.bands.BandSplit` source) goes to
 :func:`build_basis_set`, as ``strategy="batched"`` does, and returns a
-:class:`~repro_torch.api.basis_set.ReducedBasisSet`; a mesh (the
-reference's ``"distributed"``) raises ``NotImplementedError``.  The choice
-and the numbers behind it are logged on logger ``repro_torch.api``.
+:class:`~repro_torch.api.basis_set.ReducedBasisSet`.  The choice and the
+numbers behind it are logged on logger ``repro_torch.api``.
 """
 
 from __future__ import annotations
@@ -243,6 +246,11 @@ def _auto_strategy(spec: ReductionSpec, shape, dtype):
 
     block_p = spec.block_p
     max_k = spec.max_k
+    if spec.mesh is not None:
+        logger.info("auto strategy -> 'distributed' for shape %s %s (a mesh "
+                    "was passed)", tuple(shape),
+                    str(torch_dtype(dtype)).removeprefix("torch."))
+        return "distributed", block_p, max_k
     need = _resident_bytes(shape, dtype, spec.max_k)
     budget = (spec.memory_budget_bytes
               if spec.memory_budget_bytes is not None
@@ -332,6 +340,23 @@ def _build_block_greedy(spec, S, ckpt_dir=None):
         checkpoint_dir=ckpt_dir, resume=spec.resume, device=S.device,
     )
     return _trim_greedy(res, diag)
+
+
+def _build_distributed(spec, prov, ckpt_dir=None):
+    from repro_torch.core.distributed import distributed_greedy
+
+    if spec.mesh is None:
+        raise ValueError('strategy "distributed" requires spec.mesh')
+    N, M = prov.shape
+    max_k = min(N, M) if spec.max_k is None else spec.max_k
+    return _trim_greedy(distributed_greedy(
+        prov, tau=spec.tau, max_k=max_k, mesh=spec.mesh,
+        callback=spec.callback, refresh=spec.refresh,
+        refresh_safety=spec.refresh_safety, kappa=spec.kappa,
+        max_passes=spec.max_passes, chunk=spec.chunk, backend=spec.backend,
+        block_p=spec.block_p, panel_ortho=spec.panel_ortho,
+        checkpoint_dir=ckpt_dir, resume=spec.resume, device=prov.device,
+    ))
 
 
 def _build_streamed(spec, prov, ckpt_dir=None):
@@ -449,8 +474,10 @@ def _build_pod(spec, S, ckpt_dir=None):
             res.sigmas[:k].cpu().numpy(), None, k, {})
 
 
-# strategies that stream their source's tiles instead of materializing it
-_STREAMING_STRATEGIES = ("streamed", "randomized", "sketch+greedy")
+# strategies that read their source's tiles instead of materializing it
+# (``distributed``: each rank materializes only its own columns)
+_STREAMING_STRATEGIES = ("streamed", "randomized", "sketch+greedy",
+                         "distributed")
 
 
 def _is_batched_workload(spec: ReductionSpec) -> bool:
@@ -471,6 +498,7 @@ def _is_batched_workload(spec: ReductionSpec) -> bool:
 _BUILDERS = {
     "greedy": _build_greedy,
     "block_greedy": _build_block_greedy,
+    "distributed": _build_distributed,
     "streamed": _build_streamed,
     "randomized": _build_randomized,
     "sketch+greedy": _build_sketch_greedy,
@@ -524,6 +552,13 @@ def build_basis(spec: ReductionSpec | None = None, **kwargs):
     from repro_torch.data.providers import as_provider, materialize_source
 
     device = resolve_device(spec.device)
+    # Under a mesh every rank of it makes this call: rank 0 alone writes
+    # the workdir, and the others wait for it.
+    writer = True
+    if spec.mesh is not None:
+        from repro_torch.core.distributed import barrier, is_writer
+
+        writer = is_writer(spec.mesh)
     # ------------------------------------------- workdir build lifecycle --
     # A workdir owns the whole build: mid-build checkpoints in
     # <workdir>/build/, the finished basis finalized atomically into
@@ -540,13 +575,16 @@ def build_basis(spec: ReductionSpec | None = None, **kwargs):
             else:
                 # Already finalized (the previous run died between
                 # finalize and scratch cleanup): return it, finish the GC.
-                shutil.rmtree(build_dir, ignore_errors=True)
+                if writer:
+                    shutil.rmtree(build_dir, ignore_errors=True)
                 logger.info("workdir %s already holds a finalized basis; "
                             "returning it", spec.workdir)
                 return basis
-        else:
+        elif writer:
             # A fresh build must not splice onto a previous run's steps.
             shutil.rmtree(build_dir, ignore_errors=True)
+        if spec.mesh is not None:
+            barrier(spec.mesh)
     ckpt_dir = build_dir if build_dir is not None else spec.checkpoint_dir
 
     strategy = spec.strategy
@@ -603,8 +641,11 @@ def build_basis(spec: ReductionSpec | None = None, **kwargs):
                          provenance=provenance)
     if spec.workdir is not None:
         # Finalize: atomic save into the workdir, THEN drop the scratch.
-        basis.save(spec.workdir)
-        shutil.rmtree(build_dir, ignore_errors=True)
+        if writer:
+            basis.save(spec.workdir)
+            shutil.rmtree(build_dir, ignore_errors=True)
+        if spec.mesh is not None:
+            barrier(spec.mesh)
     return basis
 
 

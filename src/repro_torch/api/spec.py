@@ -1,10 +1,9 @@
 """`ReductionSpec`: one declarative description of a basis build.
 
 Port of :mod:`repro.api.spec`: the reference's fields, plus ``device``.
-The strategy of the reference that is not ported yet (``distributed``) is
-named in ``STRATEGIES``; asking for it, or setting the field that selects
-it (``mesh``), raises ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports it.
+Every strategy of the reference is ported; ``mesh`` is a
+``torch.distributed`` device mesh
+(:func:`repro_torch.compat.make_auto_mesh`).
 """
 
 from __future__ import annotations
@@ -21,16 +20,11 @@ from typing import Any, Callable, Optional
 # greedy pass count costs more than twice the sketch's 1 + 2*sketch_power
 # passes) — see repro_torch.api.build.  A many-basis workload (batch=, a
 # stacked, list, tuple or BandSplit source) resolves to "batched"; a mesh
-# would resolve to "distributed", which is not ported.
+# resolves to "distributed", before any roofline work.
 STRATEGIES = (
     "pod", "mgs", "greedy", "block_greedy", "streamed", "distributed",
     "randomized", "sketch+greedy", "batched", "auto",
 )
-
-# Strategy -> the ROADMAP.md item that ports it.
-_NOT_PORTED = {
-    "distributed": "queue 1 item 7 (distributed greedy)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +42,17 @@ class ReductionSpec:
         tiles, never resident), ``"randomized"`` (the streamed randomized
         range-finder: 1 + 2 * sketch_power passes over S whatever k is),
         ``"sketch+greedy"`` (that sketch, then the streamed greedy driver
-        refining its basis to tau), ``"pod"`` (Algorithm 1, an SVD),
+        refining its basis to tau), ``"distributed"`` (the paper's
+        Sec. 6 system: S split by column over the ranks of ``mesh``,
+        :func:`repro_torch.core.distributed.distributed_greedy`; every
+        rank of the mesh calls ``build_basis``), ``"pod"`` (Algorithm 1,
+        an SVD),
         ``"mgs"`` (Algorithm 2, pivoted MGS), ``"batched"`` (B bases in
         one lockstep pass, :func:`repro_torch.api.build.build_basis_set`:
         a (B, N, M), list, tuple or ``BandSplit`` source, or an (N, M) one
         with ``batch`` or a length-B ``tau``), or ``"auto"``, which picks
         from the problem shape, the device-memory budget and a roofline
-        model of the device, and logs its choice.  ``"distributed"``
-        raises ``NotImplementedError``.
+        model of the device, and logs its choice.
       tau: stopping tolerance (the paper's ``tau``; for ``pod`` the
         smallest k with ``sigma_{k+1} < tau``); ``"batched"`` also takes
         one a lane (a tau sweep).
@@ -63,13 +60,16 @@ class ReductionSpec:
       backend: hot-loop backend (:mod:`repro_torch.core.backend`):
         ``"auto" | "ref"`` or None (env/default).
       chunk: greedy iterations per host sync (``block_greedy`` runs
-        ``max(1, chunk // block_p)`` blocks per sync).
+        ``max(1, chunk // block_p)`` blocks per sync; ``distributed``
+        runs ``chunk`` steps, or blocks, per sync, as the reference's).
       tile_m: streamed tile width in columns (``streamed``,
         ``randomized``, ``sketch+greedy``).
-      mesh: a device mesh — required by ``distributed``, and flips
-        ``"auto"`` to it.  Not ported: setting it raises
-        ``NotImplementedError``.
-      block_p: pivots per sweep of S (``block_greedy``, ``streamed``);
+      mesh: a ``torch.distributed`` device mesh over every rank of the
+        process group (:func:`repro_torch.compat.make_auto_mesh`) —
+        required by ``distributed``, and flips ``"auto"`` to it.  Its
+        device type must be the spec's ``device``'s.
+      block_p: pivots per sweep of S (``block_greedy``, ``streamed``,
+        ``distributed``);
         ``1`` is the
         paper's stepwise selection, > 1 amortizes each read of S over
         block_p bases at the cost of pivot staleness.  ``"auto"`` may
@@ -154,10 +154,6 @@ class ReductionSpec:
         if self.strategy not in STRATEGIES:
             raise ValueError(
                 f"unknown strategy {self.strategy!r}; valid: {STRATEGIES}")
-        if self.strategy in _NOT_PORTED:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} is not ported to repro_torch "
-                f"yet: ROADMAP.md {_NOT_PORTED[self.strategy]}")
         if self.source is None:
             raise ValueError("ReductionSpec requires a source")
         if self.workdir is not None and self.checkpoint_dir is not None:
@@ -175,11 +171,6 @@ class ReductionSpec:
             raise ValueError(
                 "the batched strategy does not support checkpoint_dir; "
                 "use workdir= (the finished set finalizes atomically)")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"mesh= selects strategy 'distributed', which is not "
-                f"ported to repro_torch yet: ROADMAP.md "
-                f"{_NOT_PORTED['distributed']}")
 
     @classmethod
     def waveform(cls, f, m1s, m2s, dtype=None, normalize: bool = True,
@@ -203,8 +194,8 @@ class ReductionSpec:
         return cls(source=prov, **kwargs)
 
     def describe(self) -> dict:
-        """JSON-serializable provenance view of this spec (source and
-        callback summarized, not embedded)."""
+        """JSON-serializable provenance view of this spec (source, mesh
+        and callback summarized, not embedded)."""
         d = {f.name: getattr(self, f.name)
              for f in dataclasses.fields(self)}
         src = self.source
@@ -216,6 +207,10 @@ class ReductionSpec:
             **({"path": os.fspath(src)}
                if isinstance(src, (str, os.PathLike)) else {}),
         }
+        d["mesh"] = (
+            None if self.mesh is None
+            else {"axis_names": list(self.mesh.mesh_dim_names or ()),
+                  "shape": [int(s) for s in self.mesh.mesh.shape]})
         d["callback"] = None if self.callback is None else "<callback>"
         d["device"] = str(self.device)
         return d

@@ -6,6 +6,10 @@ Each module exports ``CONFIG`` (the full assignment-spec config) and
 The port's copy of :mod:`repro.configs` (data only): the same ``ARCHS``,
 ``ALIASES``, full and reduced configurations.  Only the dense family runs
 in the port so far (:mod:`repro_torch.models.transformer`).
+
+Beside the architectures, ``WORKLOADS`` names the model-reduction
+workloads: ``gw_greedy`` (:mod:`repro_torch.configs.gw_greedy`), the
+paper's Blue Waters build, which sizes :mod:`repro_torch.launch.reduce`.
 """
 
 import importlib
@@ -22,6 +26,9 @@ ARCHS = [
     "recurrentgemma_9b",
     "seamless_m4t_medium",
 ]
+
+# model-reduction workloads (not architectures): module names
+WORKLOADS = ["gw_greedy"]
 
 # CLI ids (dashes) -> module names
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}

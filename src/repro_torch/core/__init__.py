@@ -3,7 +3,7 @@
 The recommended entry point is the front door, :mod:`repro_torch.api` —
 ``build_basis(source=S, tau=...)`` dispatches to the right engine
 (``strategy="pod" | "mgs" | "greedy" | "block_greedy" | "streamed" |
-"randomized" | "sketch+greedy" | "auto"``) and returns one
+"distributed" | "randomized" | "sketch+greedy" | "auto"``) and returns one
 ``ReducedBasis`` artifact (``"batched"``: a ``ReducedBasisSet``).
 
 - :mod:`repro_torch.core.pod`            -- Algorithm 1 (POD via SVD).
@@ -17,6 +17,9 @@ The recommended entry point is the front door, :mod:`repro_torch.api` —
 - :mod:`repro_torch.core.batch_greedy`   -- B greedy builds in lockstep
   (``strategy="batched"``), stacked or over one shared S, each lane bitwise
   the scalar driver.
+- :mod:`repro_torch.core.distributed`    -- the paper's Sec. 6 system: S
+  split by column over the ranks of a ``torch.distributed`` mesh, the
+  pivot exchanged with collectives (``strategy="distributed"``).
 - :mod:`repro_torch.core.streaming`      -- the out-of-core driver: S
   streamed through the device in column tiles from a snapshot provider.
 - :mod:`repro_torch.core.randomized`     -- streamed randomized
@@ -32,6 +35,11 @@ The recommended entry point is the front door, :mod:`repro_torch.api` —
 
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.batch_greedy import BatchGreedyResult, batch_rb_greedy
+from repro_torch.core.distributed import (
+    DistGreedyState,
+    dist_greedy_init,
+    distributed_greedy,
+)
 from repro_torch.core.eim import eim_nodes, empirical_interpolant, roq_weights
 from repro_torch.core.greedy import (
     GreedyResult,
@@ -59,5 +67,6 @@ __all__ = [
     "roq_weights", "resolve_backend", "StreamedGreedyResult",
     "rb_greedy_streamed", "rb_randomized_streamed",
     "RandomizedSketchResult", "estimate_rank", "RankEstimate",
-    "batch_rb_greedy", "BatchGreedyResult",
+    "batch_rb_greedy", "BatchGreedyResult", "distributed_greedy",
+    "DistGreedyState", "dist_greedy_init",
 ]

@@ -67,12 +67,12 @@ def top_p(res_sq: torch.Tensor, p: int):
     return vals[:p], idx[:p]
 
 
-def _ortho_block(S, Q, top_idx, idx, active, p, kappa, max_passes, thresh,
-                 backend, panel):
-    """Orthogonalize one block of p candidates against ``Q`` and against
-    each other, with the in-block rank guard; the block is written into
-    ``Q``'s slots ``idx`` where ``active`` (rejected candidates leave zero
-    "hole" columns).
+def _ortho_block(V, Q, idx, active, p, kappa, max_passes, thresh, backend,
+                 panel):
+    """Orthogonalize one block of p candidates (the columns of the (N, p)
+    panel ``V``) against ``Q`` and against each other, with the in-block
+    rank guard; the block is written into ``Q``'s slots ``idx`` where
+    ``active`` (rejected candidates leave zero "hole" columns).
 
     ``panel=True`` (p > 1) runs :func:`panel_imgs_orthogonalize`;
     ``panel=False`` keeps p sequential :func:`imgs_orthogonalize` calls
@@ -83,7 +83,6 @@ def _ortho_block(S, Q, top_idx, idx, active, p, kappa, max_passes, thresh,
     Returns ``(Qnew, oks, rnorms, n_passes)``.
     """
     if panel and p > 1:
-        V = S.index_select(1, top_idx)                     # (N, p)
         Qnew, oks, rnorms, npasses = panel_imgs_orthogonalize(
             V, Q, kappa, max_passes, thresh=thresh, backend=backend,
             active=active)
@@ -91,7 +90,7 @@ def _ortho_block(S, Q, top_idx, idx, active, p, kappa, max_passes, thresh,
         return Qnew, oks, rnorms, npasses
     qs, oks, rnorms, npasses = [], [], [], []
     for i in range(p):
-        v = S.index_select(1, top_idx[i:i + 1]).squeeze(1)
+        v = V[:, i].contiguous()
         q, _, rnorm, n_pass = imgs_orthogonalize(v, Q, kappa, max_passes,
                                                  backend=backend,
                                                  active=active)
@@ -108,15 +107,18 @@ def _ortho_block(S, Q, top_idx, idx, active, p, kappa, max_passes, thresh,
 
 
 def _add_block(S, st: GreedyState, top_vals, top_idx, active, p, kappa,
-               max_passes, thresh, backend, panel):
+               max_passes, thresh, backend, panel, V=None):
     """Orthogonalize the block, sweep S once, and write slots
     ``st.k .. st.k + p - 1`` of Q, R, pivots and errs where ``active``,
-    in place.  Returns ``(idx, oks, rnorms, n_passes)``; ``k`` is the
-    caller's to advance."""
+    in place.  ``V`` is the block's (N, p) panel of candidate columns
+    (default: ``S``'s columns ``top_idx``; the distributed driver passes
+    the panel it fetched from the owners).  Returns ``(idx, oks, rnorms,
+    n_passes)``; ``k`` is the caller's to advance."""
     idx = st.k + torch.arange(p, device=S.device)
+    if V is None:
+        V = S.index_select(1, top_idx)                     # (N, p)
     Qnew, oks, rnorms, npasses = _ortho_block(
-        S, st.Q, top_idx, idx, active, p, kappa, max_passes, thresh,
-        backend, panel)
+        V, st.Q, idx, active, p, kappa, max_passes, thresh, backend, panel)
     # ONE pass over S for the whole block
     C, acc = _backend.block_sweep(Qnew, S, st.acc, backend=backend)
     _put(st.R, 0, idx, C, active)

@@ -1381,3 +1381,68 @@ def test_batched_driver_lanes_bitwise_the_scalar_builds_on_card(cuda,
             for name in ("Q", "R", "pivots", "errs", "rnorms",
                          "n_ortho_passes"):
                 assert torch.equal(getattr(lane, name), getattr(ref, name))
+
+
+def _gw_resident(N, M, cuda):
+    """The (N, M) complex64 GW matrix of ``_torch_dist_ranks.
+    gw_card_build`` and its resident greedy build on the card."""
+    from repro_torch.api import build_basis
+    from repro_torch.gw import build_snapshot_matrix, chirp_grid
+    from repro_torch.gw import frequency_grid
+
+    f = frequency_grid(40.0, 1024.0, N)
+    m1, m2 = chirp_grid(n_mc=M // 16, n_eta=16)
+    S = build_snapshot_matrix(f, m1, m2, dtype=torch.complex64, device=cuda)
+    return build_basis(source=S, strategy="greedy", tau=1e-4, max_k=64,
+                       chunk=16, device=cuda)
+
+
+def _assert_prefix_bitwise(got, ref):
+    """k >= 5 and, on the shared prefix (the distributed build stops by
+    the reference's distributed rules), pivots, errs, Q and R bit for
+    bit."""
+    k = min(got["k"], ref.k)
+    assert k >= 5
+    assert np.array_equal(got["pivots"][:k], ref.pivots[:k])
+    assert np.array_equal(got["errs"][:k], ref.errs[:k])
+    assert np.array_equal(got["Q"][:, :k], ref.Q[:, :k].cpu().numpy())
+    assert np.array_equal(got["R"][:k], ref.R[:k])
+
+
+@pytest.mark.cuda
+def test_distributed_one_nccl_rank_is_the_resident_build(cuda):
+    """One rank in this process: init_ranks picks NCCL (the rank has the
+    card to itself), and the distributed build of a (512, 8,192) complex64
+    GW matrix is bitwise the resident greedy build on the shared
+    prefix."""
+    import torch.distributed as dist
+
+    from _torch_dist_ranks import gw_card_build
+    from repro_torch.launch.mesh import close_ranks, init_ranks
+
+    ranks = init_ranks(device="cuda")
+    try:
+        assert ranks.backend == "nccl" and ranks.world_size == 1
+        got = gw_card_build(512, 8192, 16)
+        assert dist.get_backend() == "nccl"
+    finally:
+        close_ranks()
+    assert got["strategy"] == "distributed"
+    _assert_prefix_bitwise(got, _gw_resident(512, 8192, cuda))
+
+
+@pytest.mark.cuda
+def test_distributed_two_gloo_ranks_share_the_card(cuda):
+    """Two spawned ranks on one card: init_ranks picks gloo (NCCL refuses
+    two ranks on one GPU), each rank generates its 4,096 columns, and the
+    build is bitwise the resident greedy build on the shared prefix, on
+    both ranks."""
+    from _torch_dist_ranks import gw_card_build
+    from repro_torch.launch.mesh import spawn_ranks
+
+    out = spawn_ranks(gw_card_build, 2, (512, 8192, 16), device="cuda",
+                      timeout_s=300)
+    ref = _gw_resident(512, 8192, cuda)
+    for got in out:
+        assert got["backend"] == "gloo" and got["strategy"] == "distributed"
+        _assert_prefix_bitwise(got, ref)

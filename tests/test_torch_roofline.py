@@ -77,12 +77,26 @@ def test_auto_picks_streamed_on_forced_small_budget():
     _assert_bitwise(basis, ref.Q, ref.pivots, ref.errs, int(ref.k))
 
 
-def test_auto_with_mesh_names_the_distributed_item():
-    """The reference's "auto" picks "distributed" when a mesh is passed;
-    the port has no distributed driver yet, so a mesh raises, naming its
-    ROADMAP.md item."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tapi.build_basis(source=_S(), tau=TAU, mesh=object(), device=CPU)
+def test_auto_with_mesh_names_the_distributed_item(monkeypatch):
+    """"auto" picks "distributed" when a mesh is passed, as the
+    reference's does, before any roofline work (the model is not
+    consulted); the build itself is tested in
+    tests/test_torch_distributed.py."""
+    from repro_torch.api import build as tbuild
+
+    def no_roofline(*_a, **_k):
+        raise AssertionError("the roofline model was consulted")
+
+    monkeypatch.setattr(tbuild, "_sweep_roofline", no_roofline)
+    monkeypatch.setattr(tbuild, "device_memory_budget", no_roofline)
+    mesh = object()
+    port = tbuild._auto_strategy(
+        tapi.ReductionSpec(source=_S(), tau=TAU, mesh=mesh, device=CPU),
+        (200, 120), torch.complex64)
+    ref = jax_auto_strategy(
+        japi.ReductionSpec(source=_S(), tau=TAU, mesh=mesh), (200, 120),
+        jnp.complex64)
+    assert port == ref == ("distributed", 1, None)
 
 
 def test_auto_respects_env_budget(monkeypatch):
@@ -430,7 +444,8 @@ def test_cache_cliff_rule(monkeypatch, rates, want):
 def test_spec_takes_the_reference_fields():
     """The roofline knobs are the reference's fields with its defaults,
     describe() serializes them; batch is validated as the reference does
-    it and makes a spec (item 6 is ported), mesh raises item 7."""
+    it and makes a spec (item 6 is ported), and so does mesh (item 7),
+    summarized in describe() by its dimension names and shape."""
     spec = tapi.ReductionSpec(source=np.zeros((4, 4)),
                               memory_budget_bytes=123, cache_bytes=7)
     d = spec.describe()
@@ -445,8 +460,12 @@ def test_spec_takes_the_reference_fields():
         tapi.ReductionSpec(source="x", strategy="greedy", batch=2)
     assert tapi.ReductionSpec(source="x", batch=2).batch == 2
     assert tapi.ReductionSpec(source="x", batch=2).describe()["batch"] == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tapi.ReductionSpec(source="x", mesh=object())
+    from types import SimpleNamespace
+
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                           mesh=torch.arange(4).view(2, 2))
+    assert tapi.ReductionSpec(source="x", mesh=mesh).describe()["mesh"] == \
+        {"axis_names": ["data", "model"], "shape": [2, 2]}
 
 
 @pytest.mark.parametrize("source", ["stack", "list", "tuple"])
