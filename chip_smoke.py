@@ -7,9 +7,11 @@ Drives the port's two build paths at the GW workload's full width
 snapshots: 10.5 GB of S on the card) — the paper's RB-greedy build, then
 the artifact and the ROQ online stage, then the blocked build
 (``strategy="block_greedy"``, block_p = 8), the streamed and randomized
-builds up to the paper's M = 3,276,800 — then the dense-LM serving path
-(granite-3-8b at full width, its prefill attention in the flash kernel),
-and holds each hand-written kernel against its plain PyTorch version.  Phases, each one JSON line:
+builds up to the paper's M = 3,276,800 — then the LM serving paths
+(granite-3-8b, mixtral-8x7b at 16 of its 32 layers, recurrentgemma-9b
+and mamba2-780m at full width, their prefill attention in the flash
+kernel), and holds each hand-written kernel against its plain PyTorch
+version.  Phases, each one JSON line:
 
   env        torch / CUDA versions and the card
   build      seconds to build the CUDA kernels (nvcc, at first use)
@@ -158,7 +160,8 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
   lm_kernels  flash_attention's two kernels vs the plain version at the
              serve path's shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16,
              causal) and at small ones (f32/bf16/f16, D 16-256, groups
-             1/4/8, window 48, non-causal, ragged S, Sq < Skv), each with
+             1/4/8/16, windows 40-256 inside and across key tiles,
+             non-causal, ragged S, Sq < Skv), each with
              near-uniform and with peaked logits, each call on the route the
              rule gives (the general kernel also at the sm90 kernel's
              shapes); at the path's shape the sm90 kernel and the general
@@ -171,6 +174,25 @@ and holds each hand-written kernel against its plain PyTorch version.  Phases, e
              40 flash launches on the sm90 route; prefill logits against
              the einsum (plain) path, two greedy runs equal, every logit
              finite
+  serve_moe, serve_hybrid, serve_ssm  the decoder-only families, each
+             model freed before the next (FAMILY_CELLS): mixtral-8x7b at 16
+             of its 32 layers (47 GB; whole it would not fit) on 2 prompts
+             of 6,144 tokens, recurrentgemma-9b on 4 of 4,096, mamba2-780m
+             on 4 of 4,096, 32 new tokens each, through
+             ServeEngine.generate; launches counted from 0 just before it:
+             16 / 12 / 0 flash launches, all sm90; two greedy runs equal,
+             in-place and functional decode equal, every logit finite; the
+             forward at every prompt position, flash against
+             attn_impl="chunked", within 8 bf16 eps a row (moe: each
+             layer's attention output on the same input, its routing flips
+             cascading through a whole forward; ssm: bitwise); ssm and
+             hybrid decode steps 1, 8 and 32 against the prefill over the
+             prompt plus the tokens fed, gated in float32 on the first
+             prompt (bf16 reported); weight GB, prefill ms and tok/s,
+             decode ms a token beside
+             its weight-read bound (moe: the experts chosen in the step),
+             the share of (token, choice) pairs dropped at capacity (moe),
+             peak memory, the card's name and power limit
 
 Then a line listing every ported kernel, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
@@ -256,6 +278,17 @@ INT32_INSTR_PER_S = 132 * 64 * 1.98e9
 # prompts, 32 new tokens each (the KV cache holds prompt + new tokens).
 LM_ARCH = "granite-3-8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# The decoder-only families at full width (bf16, random weights from the
+# seed): (phase, arch, config overrides, batch, prompt, new tokens).
+# mixtral-8x7b's 32 layers take 93.4 GB in bf16, past one 80 GB card: 16 of
+# them (47.0 GB) leave room for the chunked comparison and the dispatch
+# buffers.  Its prompts are 1.5x its 4,096-token window, recurrentgemma's
+# 2x its 2,048-token local window.
+FAMILY_CELLS = (
+    ("serve_moe", "mixtral-8x7b", {"n_layers": 16}, 2, 6144, 32),
+    ("serve_hybrid", "recurrentgemma-9b", {}, 4, 4096, 32),
+    ("serve_ssm", "mamba2-780m", {}, 4, 4096, 32),
+)
 # (B, Hq, Hkv, Sq, Skv, D, causal, window) of the small flash checks:
 # groups 1, 4 and 8; ragged S; a window of 48 against key tiles of 64; Sq <
 # Skv end-aligned; non-causal, with Sq > Skv too; D 16 to 256; one query.
@@ -270,13 +303,18 @@ FA_CASES = [
 ]
 # 16-bit cases of the sm90 kernel (D 64 / 128 / 256): Sq and Skv off its
 # 128-row query and key tiles, a window of 48 inside one key tile, Sq < Skv,
-# non-causal with Sq > Skv.
+# non-causal with Sq > Skv; recurrentgemma's MQA (16 query heads on one kv
+# head) at D 256 with a window inside one key tile and one across several;
+# mixtral's GQA 32/8 at D 128 with a window below Sq.
 SM90_CASES = [
     (1, 8, 2, 333, 333, 128, True, None),
     (1, 8, 1, 300, 300, 128, True, 48),
     (2, 4, 1, 70, 390, 64, True, 48),
     (1, 4, 4, 190, 130, 128, False, None),
     (1, 4, 2, 150, 200, 256, True, None),
+    (1, 16, 1, 300, 300, 256, True, 40),
+    (2, 16, 1, 530, 530, 256, True, 200),
+    (1, 32, 8, 700, 700, 128, True, 256),
 ]
 
 
@@ -914,6 +952,19 @@ def lm_kernel_phase(dev) -> dict:
                       fa_ops.flash_attention(*peaked)),
           "flash_attention: two launches differ at the path's shape")
     del peaked
+    # the decoder families' attention at their cells' shapes (FAMILY_CELLS):
+    # mixtral's GQA 32/8 with its 4,096 window over 6,144 tokens,
+    # recurrentgemma's MQA at D 256 with its 2,048 local window
+    for _, arch, over, n_batch, prompt, _ in FAMILY_CELLS:
+        c = get_config(arch).replace(**over)
+        if c.family == "ssm":
+            continue
+        window = c.sliding_window or c.local_window
+        for qs in FA_QK_SCALES:
+            err = max(err, check_flash(*fa_inputs(
+                gen, n_batch, c.n_heads, c.n_kv_heads, prompt, prompt, c.hd,
+                torch.bfloat16, dev, qs), True, window, qs))
+        torch.cuda.empty_cache()
     q, k, v = fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16, dev)
     err = max(err, check_flash(q, k, v, True, None, FA_QK_SCALES[0]))
     err_general = max(err_general, check_flash(
@@ -1069,6 +1120,340 @@ def serve_phase(dev, reset_counts, read_counts) -> dict:
          logits_tol=tol, first_token_agree=agree,
          sample=toks[0, :8].tolist())
     del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tree_tensors(tree):
+    """Every tensor of a parameter / cache tree (NamedTuples, dicts, lists)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tree_tensors(v)
+
+
+def row_rel_errors(a: torch.Tensor, ref: torch.Tensor,
+                   rows: int = 256) -> torch.Tensor:
+    """Relative L2 error of each row (last axis) of ``a`` against ``ref``,
+    in float32, a slab of ``rows`` rows at a time (a full-width vocabulary
+    in float32 would not fit twice)."""
+    a2 = a.reshape(-1, a.shape[-1])
+    r2 = ref.reshape(-1, ref.shape[-1])
+    out = []
+    for lo in range(0, a2.shape[0], rows):
+        x = a2[lo:lo + rows].float()
+        y = r2[lo:lo + rows].float()
+        out.append(torch.linalg.vector_norm(x - y, dim=-1)
+                   / torch.linalg.vector_norm(y, dim=-1))
+    return torch.cat(out)
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a tree (NamedTuples, dicts, lists)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
+
+
+def attention_layerwise(params, cfg, batch) -> list:
+    """Each decoder block's attention output through the flash kernel and
+    through attn_impl="chunked" on the same input, the flash model's
+    residual stream (advanced by transformer.decoder_block): the largest
+    row's relative L2 error of each layer."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm
+
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = params.embed[tokens]
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    worst = []
+    for bp in params.blocks:
+        h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+        a, r = (att.multihead_attention(
+            bp["attn"], h, cfg, positions=positions,
+            window=cfg.sliding_window, impl=impl)
+            for impl in ("flash", "chunked"))
+        worst.append(float(row_rel_errors(a, r).max()))
+        del a, r, h
+        x = tfm.decoder_block(bp, x, cfg, positions, cfg.sliding_window)
+    return worst
+
+
+# float32 decode against the forward: both paths sum in f32 in other
+# orders (GEMMs of up to 16,512 rows against 1, the recurrent and the
+# chunked/scanned SSD and RG-LRU), ~eps * sqrt(n) ~ 1.3e-5 a GEMM; the
+# bf16 runs show the layers amplify a rounding up to ~50x (errors of 3-11%
+# from bf16's 0.2%), so ~7e-4 at most
+F32_DECODE_TOL = 1e-3
+
+
+def decode_vs_forward_f32(cfg, params, prompt, fed, steps) -> dict:
+    """The model in float32 (its bf16 weights cast, exactly): decode from
+    the prompt's prefill, fed the tokens ``fed``; step i's logits against
+    the prefill over the prompt and the first i tokens fed.  Returns the
+    largest row's relative L2 error at each step of ``steps``."""
+    from repro_torch.models import api
+
+    c32 = cfg.replace(dtype="float32")
+    p32 = _tree_map(lambda t: t.float(), params)
+    n = max(steps)
+    _, cache = api.prefill(c32, p32, {"tokens": prompt},
+                           max_len=prompt.shape[1] + n)
+    out = {}
+    for i in range(1, n + 1):
+        step_logits, cache = api.decode_step(c32, p32, fed[i - 1], cache,
+                                             inplace=True)
+        if i in steps:
+            seq = torch.cat([prompt] + [t[:, None] for t in fed[:i]], dim=1)
+            full, c = api.prefill(c32, p32, {"tokens": seq},
+                                  max_len=seq.shape[1])
+            del c
+            out[i] = float(row_rel_errors(step_logits, full).max())
+    del p32, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
+                       reset_counts, read_counts) -> dict:
+    """One decoder-only family at full width (bf16, attn_impl="flash",
+    random weights from the seed, initialized on the card) through
+    ServeEngine.generate; returns the launches of the generate run,
+    counted from 0 just before it.
+
+    Gates: the flash launches of the run are the model's attention layers
+    (one prefill), all on the sm90 route; two greedy runs give equal
+    tokens; the in-place and functional decode give equal tokens; every
+    logit is finite; the prefill's logits are the forward's last row; the
+    flash path against attn_impl="chunked" (the einsum path's (B, Hq, S,
+    S) f32 scores would not fit); for ssm and hybrid the decode steps
+    against the prefill (a full forward) over the prompt plus the tokens
+    fed so far.
+
+    Flash against chunked, relative L2 of a row: 8 bf16 eps (6.25%), as
+    the dense serve phase.  The paths round attention differently (P in
+    bf16 against an f32 softmax); each layer's bf16 output is off by
+    ~2^-9 of itself, and L layers add ~sqrt(L) of those.  ssm has no
+    attention: the paths are bitwise.  hybrid: every row of the forward's
+    logits.  moe: a (token, choice) pair whose 2nd and 3rd gates tie
+    within that rounding takes another expert (or falls on the other side
+    of its expert's capacity) on one path, its row then differs by O(1),
+    and its keys move the other tokens' attention in the next layers, so
+    the flips cascade (most rows of a 16-layer forward at random weights).
+    So moe is held layer by layer: each attention block's output on the
+    same input, every row; the forward's rows, and the share routed alike
+    at every layer, are reported.
+
+    Decode against the forward: bf16 errors reported (the layers amplify
+    the two paths' roundings, GEMMs of B rows against B * S, the
+    recurrent SSD / RG-LRU against the chunked / scanned ones, and the
+    recurrent state carries them from step to step), float32 on the first
+    prompt gated at F32_DECODE_TOL.  moe is exempt: its prefill drops
+    pairs that decode keeps."""
+    from repro_torch.models import api, moe
+    from repro_torch.serving import ServeEngine
+
+    check(cfg.dtype == "bfloat16" and cfg.family in ("moe", "ssm", "hybrid"),
+          f"{phase}: unexpected config {cfg}")
+    n_attn = {"moe": cfg.n_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    max_len = prompt + gen_len
+    tol = 8 * torch.finfo(torch.bfloat16).eps
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.nbytes for t in _tree_tensors(params))
+    batch = api.make_batch(cfg, SEED, batch_size, prompt, device=dev)
+    eng = ServeEngine(cfg, params, max_len=max_len)
+
+    # the main path, launches counted from 0 just before it
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe.routing_stats() as routing:
+        toks = eng.generate(batch, gen_len)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["flash_attention"] == n_attn
+          and launches["flash_attention_sm90"] == n_attn,
+          f"{phase}: {launches} flash launches in one generate, expected "
+          f"{n_attn}, all on the sm90 route")
+    dropped = (float(routing["dropped"]) / routing["pairs"]
+               if routing["pairs"] else None)
+    t0 = time.perf_counter()
+    again = eng.generate(batch, gen_len)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(tuple(toks.shape) == (batch_size, gen_len)
+          and toks.dtype == torch.int32, f"{phase}: tokens {toks.shape}")
+    check(torch.equal(toks, again), f"{phase}: two greedy runs differ")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{phase}: token id out of range")
+    del again
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(cfg, params, batch, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (batch_size, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{phase}: prefill logits")
+    cache_bytes = sum(t.nbytes for t in _tree_tensors(cache.self_kv))
+    del cache
+
+    # the forward at every prompt position: flash against chunked, with
+    # each token's experts and kept pairs at every layer (moe)
+    with moe.routing_stats() as flash_routes:
+        flash = api.forward_logits(cfg, params, batch)
+    check(bool(torch.isfinite(flash).all()), f"{phase}: forward logits")
+    last_rel = float(row_rel_errors(flash[:, -1], logits).max())
+    check(last_rel <= tol, f"{phase}: prefill logits vs the forward's last "
+          f"position {last_rel} > {tol}")
+    with moe.routing_stats() as ref_routes:
+        ref = api.forward_logits(cfg.replace(attn_impl="chunked"), params,
+                                 batch)
+    rel = row_rel_errors(flash, ref)
+    del flash, ref
+    if n_attn == 0:
+        check(float(rel.max()) == 0.0,
+              f"{phase}: no attention, yet flash and chunked differ")
+    # rows whose token took the same experts and kept the same pairs at
+    # every layer on both paths (all rows, but moe's)
+    same = torch.ones_like(rel, dtype=torch.bool)
+    for a, b in zip(flash_routes["routes"], ref_routes["routes"]):
+        same &= (a == b).all(-1)
+    same_share = float(same.float().mean())
+    del flash_routes, ref_routes
+    layer_rel = None
+    if cfg.family == "moe":
+        # routing flips cascade through the layers (a flipped token's keys
+        # move the others' attention), so the paths are held layer by
+        # layer on the same input: each attention block's output, flash
+        # against chunked, on the flash model's residual stream
+        layer_rel = attention_layerwise(params, cfg, batch)
+        gated = max(layer_rel)
+        check(gated <= tol, f"{phase}: flash vs chunked attention output, "
+              f"a layer's rows up to {gated} > {tol}")
+    else:
+        gated = float(rel.max())
+        check(gated <= tol, f"{phase}: flash vs chunked forward logits, "
+              f"rows up to {gated} > {tol}")
+
+    def decode(inplace):
+        """ms per decode step over gen_len steps from a fresh prefill: in
+        place, as generate() decodes, or the default functional step; the
+        steps' tokens and logits."""
+        _, cache = api.prefill(cfg, params, batch, max_len=max_len)
+        tok = logits.argmax(-1).to(torch.int32)
+        fed, outs = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(gen_len):
+            step_logits, cache = api.decode_step(cfg, params, tok, cache,
+                                                 inplace=inplace)
+            fed.append(tok)
+            outs.append(step_logits)
+            tok = step_logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / gen_len
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"{phase}: decode logits not finite")
+        return ms, fed, outs
+
+    with moe.routing_stats() as step_routing:
+        decode_ms, fed, outs = decode(True)
+    copying_ms, fed_copying, _ = decode(False)
+    check(all(torch.equal(a, b) for a, b in zip(fed, fed_copying)),
+          f"{phase}: in-place and functional decode steps differ")
+    # decode step i (from 1) against the prefill (a full forward) over the
+    # prompt + i tokens: in bf16 reported, in float32 (the same weights,
+    # cast exactly) on the first prompt gated
+    vs_forward, vs_forward_f32 = {}, {}
+    if cfg.family != "moe":
+        steps = (1, 8, gen_len)
+        for i in steps:
+            seq = torch.cat([batch["tokens"]] + [t[:, None] for t in fed[:i]],
+                            dim=1)
+            full, c = api.prefill(cfg, params, {"tokens": seq},
+                                  max_len=seq.shape[1])
+            del c
+            vs_forward[i] = float(row_rel_errors(outs[i - 1], full).max())
+        vs_forward_f32 = decode_vs_forward_f32(
+            cfg, params, batch["tokens"][:1], [t[:1] for t in fed], steps)
+        worst = max(vs_forward_f32.values())
+        check(worst <= F32_DECODE_TOL,
+              f"{phase}: float32 decode steps vs the forward over the prompt "
+              f"and the tokens fed: {vs_forward_f32} > {F32_DECODE_TOL}")
+
+    # the least time of a decode step: each weight read once (a tied head
+    # reads the whole embedding; an untied one reads one row a token of
+    # it), and of the experts only those chosen in the step
+    read = weight_bytes
+    if not cfg.tie_embeddings:
+        read -= params.embed.nbytes
+    experts_a_step = None
+    if cfg.family == "moe":
+        per_expert = params.blocks[0]["moe"]["w_gate"][0].nbytes * 3
+        experts_a_step = step_routing["decode_experts"] / gen_len
+        read -= cfg.n_layers * cfg.n_experts * per_expert
+        read += experts_a_step * per_expert
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    emit(phase, arch=cfg.name, family=cfg.family, dtype=cfg.dtype,
+         n_layers=cfg.n_layers, attn_impl=cfg.attn_impl,
+         params_b=cfg.param_count() / 1e9, weight_gb=weight_bytes / 1e9,
+         other_resident_gb=base_gb, init_s=init_s, batch=batch_size,
+         prompt=prompt, new_tokens=gen_len, launches=launches,
+         attention_layers=n_attn, first_generate_s=first_s,
+         warm_generate_s=warm_s,
+         generated_tok_s=batch_size * gen_len / warm_s,
+         prefill_ms=prefill_ms,
+         prefill_tok_s=batch_size * prompt / prefill_ms * 1e3,
+         decode_ms_per_token=decode_ms,
+         functional_decode_ms_per_token=copying_ms,
+         decode_weight_read_gb=read / 1e9,
+         decode_weight_bound_ms=bound_ms,
+         decode_bound_share=bound_ms / decode_ms,
+         cache_gb=cache_bytes / 1e9,
+         decode_experts_read_a_step=experts_a_step,
+         prefill_dropped_pair_share=dropped,
+         moe_capacity=(max(1, int(min(cfg.moe_group_size,
+                                      batch_size * prompt)
+                              * cfg.experts_per_token
+                              * cfg.capacity_factor / cfg.n_experts))
+                       if cfg.family == "moe" else None),
+         peak_mem_gb=peak_gb, logits_tol=tol,
+         forward_row_rel_max=float(rel.max()),
+         forward_row_rel_p90=float(torch.quantile(rel, 0.9)),
+         forward_rows_over_tol=float((rel > tol).float().mean()),
+         forward_rows_routed_alike=same_share,
+         forward_row_rel_max_routed_alike=float(rel[same].max()),
+         gated_rel_max=gated,
+         prefill_vs_forward_last=last_rel,
+         decode_vs_forward=vs_forward,
+         decode_vs_forward_f32=vs_forward_f32,
+         decode_vs_forward_f32_tol=F32_DECODE_TOL,
+         attention_layer_rel_max=layer_rel, sample=toks[0, :8].tolist(),
+         nvidia_smi=smi)
+    del params, eng, logits, outs
     torch.cuda.empty_cache()
     return launches
 
@@ -3414,6 +3799,15 @@ def main() -> None:
     timings.update(lm_kernel_phase(dev))
     serve_launches = serve_phase(dev, reset_counts, read_counts)
 
+    # --- the decoder-only families (moe, hybrid, ssm) at full width, each
+    # model freed before the next
+    from repro_torch.configs import get_config
+    family_launches = {
+        phase: family_serve_phase(
+            phase, get_config(arch).replace(attn_impl="flash", **over),
+            batch, prompt, gen, dev, smi, reset_counts, read_counts)
+        for phase, arch, over, batch, prompt, gen in FAMILY_CELLS}
+
     # one entry per kernel; a wrapper that routes between two kernels has
     # an entry for each, which counts its own route's launches
     kernels = []
@@ -3491,6 +3885,8 @@ def main() -> None:
                             "sketch_greedy": sg_launches[key],
                             "sketch_greedy_cut": cut_sg_launches[key],
                             "serve": serve_launches[key],
+                            **{phase: n[key]
+                               for phase, n in family_launches.items()},
                             "roofline": roof_launches[key],
                             "auto_resident": auto_launches[key],
                             "auto_paper": auto_paper_launches[key],

@@ -4,8 +4,9 @@ Each module exports ``CONFIG`` (the full assignment-spec config) and
 ``reduced()`` (a same-family, CPU-smoke-test-sized config).
 
 The port's copy of :mod:`repro.configs` (data only): the same ``ARCHS``,
-``ALIASES``, full and reduced configurations.  Only the dense family runs
-in the port so far (:mod:`repro_torch.models.transformer`).
+``ALIASES``, full and reduced configurations.  The dense, moe, ssm and
+hybrid families run in the port so far
+(:mod:`repro_torch.models.transformer`).
 
 Beside the architectures, ``WORKLOADS`` names the model-reduction
 workloads: ``gw_greedy`` (:mod:`repro_torch.configs.gw_greedy`), the

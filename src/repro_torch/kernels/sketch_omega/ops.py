@@ -32,6 +32,13 @@ launches = 0
 # rate is the same), and the bits-to-float step: the xor of the two words,
 # the shift and the or of the exponent for a gaussian draw, the or of the
 # sign into 1.0 for a rademacher one.  A complex element is two draws.
+# The gaussian draw's erfinvf adds float work on the FMA and MUFU pipes:
+# 66 float instructions a complex64 element in the kernel's SASS
+# (``tools/sass_mix.py sketch_omega``, both branches of its polynomial
+# counted); with the 86 integer operations that is 152 instructions an
+# element at 4 warp-instructions an SM a clock, which binds less than the
+# integer pipe's 86 at 64 lanes an SM a clock, so the ALU count is the
+# bound.
 ALU_OPS_PER_DRAW = {"gaussian": 43, "rademacher": 41}
 
 _U = ctypes.c_uint

@@ -1,5 +1,6 @@
 """Model zoo of the port: configurations of the 10 assigned architectures,
-and the dense decoder (prefill, decode) in PyTorch."""
+and the decoder-only families (dense, moe, ssm, hybrid: prefill, decode)
+in PyTorch."""
 
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
 

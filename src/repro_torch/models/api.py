@@ -1,9 +1,10 @@
 """Family-dispatched public model API: init / forward / prefill / decode.
 
-The port of :mod:`repro.models.api` for the dense family (``loss_fn``
-waits with training).  Every function runs on the device of the
-parameters; :func:`init_params` and :func:`make_batch` put them on
-``cuda`` unless the caller passes ``device="cpu"``.
+The port of :mod:`repro.models.api` for the decoder-only families the
+port runs (dense, moe, ssm, hybrid; ``loss_fn`` waits with training).
+Every function runs on the device of the parameters; :func:`init_params`
+and :func:`make_batch` put them on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Attention blocks: GQA/MQA/MHA, RoPE, sliding window, KV cache.
 
-The port of :mod:`repro.models.attention` for the dense family: causal
+The port of :mod:`repro.models.attention` for the decoder families: causal
 self-attention with RoPE (cross-attention, bidirectional attention and
 attention without RoPE wait with the vlm and encdec families).  Three
 interchangeable implementations (``cfg.attn_impl``), as in the JAX

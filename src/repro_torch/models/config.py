@@ -9,11 +9,16 @@ block), ``scan_layers`` (``lax.scan`` over stacked layers; the port loops
 over per-layer parameter dicts), ``tp_mode`` and ``opt_collectives``
 (sharding constraints and the manual ``megatron_rs`` collectives; without a
 mesh ``repro.sharding.tp_ag_matmuls`` and ``tp_rs_matmul`` are plain
-``x @ w``), ``moe_bf16_dispatch`` and ``moe_ep`` (the MoE family, not
-ported yet).  They are kept so that a configuration reads the same in both
-packages; the port's entry points refuse any of them (:data:`NO_EFFECT`)
-away from its default, so that a setting that would do nothing fails
-loudly (``models/transformer.py::check_family``).
+``x @ w``), ``moe_ep`` (it only shards the experts over the model axis)
+and ``moe_bf16_dispatch`` (it only casts the reference's one-hot dispatch
+and its combine weights to the activations' dtype earlier: the dispatch is
+exact either way, and ``repro/models/moe.py:114`` rounds the combine
+weights to that dtype anyway, so the result is the same bits; the port
+dispatches by index, :mod:`repro_torch.models.moe`).  They are kept so
+that a configuration reads the same in both packages; the port's entry
+points refuse any of them (:data:`NO_EFFECT`) away from its default, so
+that a setting that would do nothing fails loudly
+(``models/transformer.py::check_family``).
 """
 
 from __future__ import annotations

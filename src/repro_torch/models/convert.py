@@ -4,8 +4,9 @@
 into a numpy array (``jax.tree.map(np.asarray, params)``) and returns the
 port's :class:`~repro_torch.models.transformer.Decoder`, so that both
 packages compute the same function on the same weights.  The JAX package
-stacks each block parameter along a leading layer axis; the port keeps one
-dict per layer.
+stacks each block parameter along a leading layer axis (the hybrid family
+along two: super-block, then recurrent block); the port keeps one dict per
+layer.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import Decoder, check_family
+from repro_torch.models.transformer import (
+    Decoder, hybrid_layout, check_family,
+)
 
 
 def _field(tree, name):
@@ -32,29 +35,52 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def _layer(stacked, i, device):
-    """Layer ``i`` of a (nested) dict of stacked arrays."""
-    return {k: _layer(v, i, device) if isinstance(v, dict)
-            else _tensor(np.asarray(v)[i], device)
+def _index(stacked, i):
+    """Index ``i`` of the leading axis of a (nested) dict of arrays."""
+    return {k: _index(v, i) if isinstance(v, dict) else np.asarray(v)[i]
             for k, v in stacked.items()}
+
+
+def _tensors(tree, device):
+    return {k: _tensors(v, device) if isinstance(v, dict)
+            else _tensor(v, device) for k, v in tree.items()}
+
+
+def _layers(stacked, n, device):
+    """The ``n`` layers of a (nested) dict of stacked arrays, one dict of
+    tensors each."""
+    return [_tensors(_index(stacked, i), device) for i in range(n)]
 
 
 def params_from_numpy(cfg, tree, device=None) -> Decoder:
     """The port's parameters from the JAX package's, as numpy arrays, on
     ``cuda`` unless the caller passes ``device="cpu"``.
 
-    ``tree`` has the fields ``embed`` (V, d), ``blocks`` (dicts of arrays
-    with a leading axis of ``cfg.n_layers``), ``final_norm`` (d,) and
-    ``lm_head`` ((d, V), or None when the embeddings are tied), read by
-    attribute or by key.
+    ``tree`` has the fields ``embed`` (V, d), ``blocks``, ``tail``,
+    ``final_norm`` (d,) and ``lm_head`` ((d, V), or None when the
+    embeddings are tied), read by attribute or by key.  ``blocks`` holds
+    dicts of arrays with a leading axis of ``cfg.n_layers`` (dense, moe,
+    ssm), or for the hybrid family ``{"recs": ..., "attn": ...}`` with
+    leading axes (n_super, attn_every - 1) and (n_super,); ``tail`` is the
+    hybrid's leftover recurrent blocks (leading axis n_tail) or None.
     """
     check_family(cfg)
     device = resolve_device(device)
     blocks = _field(tree, "blocks")
     lm_head = _field(tree, "lm_head")
+    tail = _field(tree, "tail") if cfg.family == "hybrid" else None
+    if cfg.family == "hybrid":
+        n_super, n_rec, n_tail = hybrid_layout(cfg)
+        blocks = [{"recs": _layers(sb["recs"], n_rec, device),
+                   "attn": _tensors(sb["attn"], device)}
+                  for sb in (_index(blocks, s) for s in range(n_super))]
+        tail = None if tail is None else _layers(tail, n_tail, device)
+    else:
+        blocks = _layers(blocks, cfg.n_layers, device)
     return Decoder(
         embed=_tensor(_field(tree, "embed"), device),
-        blocks=[_layer(blocks, i, device) for i in range(cfg.n_layers)],
+        blocks=blocks,
         final_norm=_tensor(_field(tree, "final_norm"), device),
         lm_head=None if lm_head is None else _tensor(lm_head, device),
+        tail=tail,
     )

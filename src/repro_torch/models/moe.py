@@ -1,0 +1,182 @@
+"""Mixture-of-Experts block (GShard-style grouped capacity dispatch).
+
+The port of :mod:`repro.models.moe`.  Top-k routing with per-group expert
+capacity: tokens are processed in groups of ``cfg.moe_group_size``; within
+a group each expert accepts at most
+``C = max(1, int(group * k * capacity_factor / E))`` (token, choice) pairs
+(the reference's code truncates, though its docstring says "ceil").  A
+pair's slot in its expert's buffer is counted over the group's pairs in
+token-major, choice-minor order, so the pairs past ``C`` that drop (they
+fall through on the residual path) are the reference's.  The tail padding
+of the last group routes too, after the real tokens.
+
+The reference dispatches and combines with one-hot einsums over (E, C).
+Each output of those sums has exactly one nonzero term (a kept pair owns
+its slot alone), so the port gathers and scatters by index instead: the
+same values, without the (group, E, C) one-hot tensors.  The router and
+its softmax are float32 at any model dtype; the top-k weights are
+renormalized with a 1e-9 floor and cast to the experts' dtype before the
+combine, as the reference casts them (``moe.py:114``).  ``jax.lax.top_k``
+breaks ties to the lower expert index; :func:`_top_k` does the same
+(a stable descending sort), where ``torch.topk`` promises no order.
+
+Decode (:func:`moe_decode`) drops nothing: each token's chosen experts run
+with no capacity.  The reference gathers the (T, k, d, f) weights of the
+choices; the port runs each expert chosen in the step once over the step's
+tokens and weighs its output by the token's gate (0 where the token did
+not choose it): the same function, reading each chosen expert's weights
+once and copying none.
+
+:func:`routing_stats` collects, for the calls inside it, the (token,
+choice) pairs routed and dropped by :func:`moe_block` and the experts
+that :func:`moe_decode` read.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dtype_of, trunc_normal
+
+_STATS: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
+    "moe_routing_stats", default=None)
+
+
+@contextlib.contextmanager
+def routing_stats():
+    """Collect routing counts of the MoE calls made inside the block.
+
+    Yields a dict: ``pairs`` (real-token (token, choice) pairs routed by
+    :func:`moe_block`), ``dropped`` (of those, the ones past their expert's
+    capacity: a 0-d tensor on the activations' device, summed without a
+    host sync), ``routes`` (a (T, k) tensor a :func:`moe_block` call: each
+    real token's experts, -1 where the pair dropped), ``decode_calls`` and
+    ``decode_experts`` (the distinct experts :func:`moe_decode` read,
+    summed over its calls)."""
+    stats = {"pairs": 0, "dropped": 0, "routes": [], "decode_calls": 0,
+             "decode_experts": 0}
+    token = _STATS.set(stats)
+    try:
+        yield stats
+    finally:
+        _STATS.reset(token)
+
+
+def init_moe(gen: torch.Generator, cfg):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = dtype_of(cfg.dtype)
+    return {
+        "router": trunc_normal(gen, (d, E), 1.0, torch.float32),
+        "w_gate": trunc_normal(gen, (E, d, f), 1.0, dt),
+        "w_up": trunc_normal(gen, (E, d, f), 1.0, dt),
+        "w_down": trunc_normal(gen, (E, f, d), 1.0, dt),
+    }
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """The k largest along the last axis, ties to the lower index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(router, x, k):
+    """float32 router softmax -> (top-k weights renormalized, experts)."""
+    gate_all = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+    top_g, top_e = _top_k(gate_all, k)
+    top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
+    return top_g, top_e
+
+
+def _experts(p, xe):
+    """SwiGLU of each expert over its own rows: xe (E, n, d) -> (E, n, d)."""
+    h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    return torch.bmm(h, p["w_down"])
+
+
+def dispatch(top_e, cap: int, E: int):
+    """Slots of the (token, choice) pairs of each group in their experts'
+    buffers.  top_e: (g, t, k) -> (slot (g, t, k), kept (g, t, k)): a
+    pair's slot is the number of the group's earlier pairs, in token-major,
+    choice-minor order, that chose the same expert; it is kept if that is
+    below ``cap``."""
+    g, t, k = top_e.shape
+    onehot = F.one_hot(top_e, E).reshape(g, t * k, E)
+    before = torch.cumsum(onehot, dim=1) - onehot
+    slot = torch.gather(before, 2, top_e.reshape(g, t * k, 1))
+    slot = slot.reshape(g, t, k)
+    return slot, slot < cap
+
+
+def moe_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  Top-k dropped dispatch."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, d)
+    group = min(cfg.moe_group_size, T)
+    n_groups = -(-T // group)
+    pad = n_groups * group - T
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+    xg = xt.reshape(n_groups, group, d)
+    cap = max(1, int(group * k * cfg.capacity_factor / E))
+
+    top_g, top_e = _route(p["router"], xg, k)          # (g, t, k)
+    slot, kept = dispatch(top_e, cap, E)
+    gi = torch.arange(n_groups, device=x.device)[:, None, None].expand(
+        n_groups, group, k)
+    ti = torch.arange(group, device=x.device)[None, :, None].expand(
+        n_groups, group, k)
+    # dispatch: each kept pair's token row into its own slot
+    xe = x.new_zeros((E, n_groups, cap, d))
+    xe[top_e[kept], gi[kept], slot[kept]] = xg[gi[kept], ti[kept]]
+    ye = _experts(p, xe.reshape(E, n_groups * cap, d)).reshape(
+        E, n_groups, cap, d)
+    # combine: each pair's expert row times its gate, rounded to the
+    # experts' dtype first; a dropped pair weighs 0
+    rows = ye[top_e, gi, torch.clamp(slot, max=cap - 1)]   # (g, t, k, d)
+    w = torch.where(kept, top_g, 0.0).to(ye.dtype)
+    y = (rows.to(torch.float32) * w.to(torch.float32)[..., None]).sum(2)
+    y = y.to(ye.dtype).reshape(n_groups * group, d)[:T]
+
+    stats = _STATS.get()
+    if stats is not None:
+        kept_t = kept.reshape(n_groups * group, k)[:T]
+        stats["pairs"] += T * k
+        stats["dropped"] = stats["dropped"] + (~kept_t).sum()
+        stats["routes"].append(torch.where(
+            kept_t, top_e.reshape(n_groups * group, k)[:T], -1))
+    return y.reshape(B, S, d)
+
+
+def moe_decode(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Decode-path MoE, no capacity: x (B, S, d) -> (B, S, d).
+
+    Each expert that some token chose runs once over all T = B * S tokens
+    (reading its weights once); token t's output sums its chosen experts'
+    rows times its gates, which are 0 for the experts it did not choose.
+    One host read a call: the distinct experts of the step."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    xt = x.reshape(B * S, d)
+    top_g, top_e = _route(p["router"], xt, k)          # (T, k)
+    # gate of each (token, expert), rounded to the experts' dtype as the
+    # reference rounds the top-k weights before its combine
+    gates = torch.zeros((xt.shape[0], E), dtype=torch.float32,
+                        device=x.device)
+    gates.scatter_(1, top_e, top_g.to(xt.dtype).to(torch.float32))
+    chosen = torch.unique(top_e).tolist()
+    y = torch.zeros((xt.shape[0], d), dtype=torch.float32, device=x.device)
+    for e in chosen:
+        h = F.silu(xt @ p["w_gate"][e]) * (xt @ p["w_up"][e])
+        y += (h @ p["w_down"][e]).to(torch.float32) * gates[:, e, None]
+    stats = _STATS.get()
+    if stats is not None:
+        stats["decode_calls"] += 1
+        stats["decode_experts"] += len(chosen)
+    return y.to(x.dtype).reshape(B, S, d)

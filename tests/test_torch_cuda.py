@@ -640,6 +640,11 @@ SM90_CASES = [
     (1, 8, 2, 129, 257, 128, False, 100),
     (1, 4, 2, 150, 200, 256, True, None),
     (1, 4, 4, 1, 77, 64, True, None),
+    # recurrentgemma's MQA at D 256, a window inside one key tile and one
+    # across several; mixtral's GQA 32/8 at D 128, a window below Sq
+    (1, 16, 1, 300, 300, 256, True, 40),
+    (2, 16, 1, 530, 530, 256, True, 200),
+    (1, 32, 8, 700, 700, 128, True, 256),
 ]
 
 
@@ -1446,3 +1451,51 @@ def test_distributed_two_gloo_ranks_share_the_card(cuda):
     for got in out:
         assert got["backend"] == "gloo" and got["strategy"] == "distributed"
         _assert_prefix_bitwise(got, ref)
+
+
+def _to_device(tree, device):
+    """A parameter / cache tree (NamedTuples, dicts, lists) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_device(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "recurrentgemma-9b",
+                                  "mamba2-780m"])
+def test_lm_family_on_card_matches_cpu(cuda, arch):
+    """The reduced config (f32) prefilled and decoded 3 steps on the card
+    against the CPU path on the same weights and tokens: the card's
+    attention is the flash kernel (one launch an attention layer of the
+    prefill), the CPU's its plain version.  Both are f32 with TF32 off;
+    they differ in the order of f32 sums, 1e-4 of the logits' scale."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import api
+
+    cfg = get_reduced(arch).replace(attn_impl="flash")
+    n_attn = {"moe": cfg.n_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    params = api.init_params(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 80),
+                         generator=torch.Generator().manual_seed(0))
+    lc, cc = api.prefill(cfg, params, {"tokens": toks}, max_len=88)
+    n0 = fa_ops.launches
+    lg, cg = api.prefill(cfg, _to_device(params, cuda),
+                         {"tokens": toks.to(cuda)}, max_len=88)
+    torch.cuda.synchronize()
+    assert fa_ops.launches - n0 == n_attn
+    pg = _to_device(params, cuda)
+    for step in range(4):
+        tol = 1e-4 * max(1.0, float(lc.abs().max()))
+        assert float((lg.cpu() - lc).abs().max()) <= tol, step
+        if step == 3:
+            break
+        tok = lc.argmax(-1).to(torch.int32)
+        lc, cc = api.decode_step(cfg, params, tok, cc)
+        lg, cg = api.decode_step(cfg, pg, tok.to(cuda), cg)

@@ -1,14 +1,18 @@
-"""Where the time of the port's dense-LM serving path goes, on one GPU.
+"""Where the time of the port's LM serving paths goes, on one GPU.
 
-    python3 tools/profile_torch_serve.py [--decode-steps 8] [--trace DIR]
+    python3 tools/profile_torch_serve.py [--cell serve] [--decode-steps 8]
+                                         [--trace DIR]
 
-Initializes ``chip_smoke.py``'s serving cell (granite-3-8b at full width,
-bf16, ``attn_impl="flash"``, random weights from the seed) on the card,
-warms it with one ``ServeEngine.generate`` (4 prompts of 2048 tokens, 32
-new tokens each), then traces one prefill and ``--decode-steps`` decode
-steps under ``torch.profiler``.  Prints one JSON line per traced part: its
-wall time, the device busy share (union of kernel intervals over the
-wall time), kernel time by name and the host syncs seen.  The Chrome
+Initializes one of ``chip_smoke.py``'s serving cells on the card (bf16,
+``attn_impl="flash"``, random weights from the seed): ``serve``
+(granite-3-8b, 4 prompts of 2048 tokens, 32 new tokens) or one of its
+``FAMILY_CELLS`` (``serve_moe``: mixtral-8x7b at 16 layers, 2 x 6,144;
+``serve_hybrid``: recurrentgemma-9b, 4 x 4,096; ``serve_ssm``:
+mamba2-780m, 4 x 4,096).  It warms the cell with one
+``ServeEngine.generate``, then traces one prefill and ``--decode-steps``
+decode steps under ``torch.profiler``.  Prints one JSON line per traced
+part: its wall time, the device busy share (union of kernel intervals over
+the wall time), kernel time by name and the host syncs seen.  The Chrome
 traces are kept in ``--trace DIR`` when given.
 """
 
@@ -30,14 +34,17 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 
 def main() -> None:
+    import chip_smoke as cs
+
     ap = argparse.ArgumentParser()
+    ap.add_argument("--cell", default="serve",
+                    choices=["serve"] + [c[0] for c in cs.FAMILY_CELLS])
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--trace", default=None,
                     help="keep the Chrome traces in this directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_serve: no CUDA device")
-    import chip_smoke as cs
     from profile_torch_build import kernel_stats
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -46,12 +53,16 @@ def main() -> None:
 
     _build.build_all(("flash_attention",))
     dev = torch.device("cuda", 0)
-    cfg = get_config(cs.LM_ARCH).replace(attn_impl="flash")
-    max_len = cs.SERVE_PROMPT + cs.SERVE_GEN
+    arch, over, n_batch, prompt, gen = (
+        cs.LM_ARCH, {}, cs.SERVE_BATCH, cs.SERVE_PROMPT, cs.SERVE_GEN)
+    for cell in cs.FAMILY_CELLS:
+        if cell[0] == args.cell:
+            arch, over, n_batch, prompt, gen = cell[1:]
+    cfg = get_config(arch).replace(attn_impl="flash", **over)
+    max_len = prompt + gen
     params = api.init_params(cfg, cs.SEED, device=dev)
-    batch = api.make_batch(cfg, cs.SEED, cs.SERVE_BATCH, cs.SERVE_PROMPT,
-                           device=dev)
-    ServeEngine(cfg, params, max_len=max_len).generate(batch, cs.SERVE_GEN)
+    batch = api.make_batch(cfg, cs.SEED, n_batch, prompt, device=dev)
+    ServeEngine(cfg, params, max_len=max_len).generate(batch, gen)
 
     def traced(name, fn):
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -67,7 +78,8 @@ def main() -> None:
             os.makedirs(os.path.dirname(trace), exist_ok=True)
             prof.export_chrome_trace(trace)
             stats = kernel_stats(trace, wall * 1e6)
-        print(json.dumps({"part": name,
+        print(json.dumps({"cell": args.cell, "arch": cfg.name,
+                          "part": name,
                           "device": torch.cuda.get_device_name(0),
                           "wall_ms": wall * 1e3, **stats}), flush=True)
         return out
