@@ -8,10 +8,11 @@ snapshots: 10.5 GB of S on the card) — the paper's RB-greedy build, then
 the artifact and the ROQ online stage, then the blocked build
 (``strategy="block_greedy"``, block_p = 8), the streamed and randomized
 builds up to the paper's M = 3,276,800 — then the LM serving paths
-(granite-3-8b, mixtral-8x7b at 16 of its 32 layers, recurrentgemma-9b
-and mamba2-780m at full width, their prefill attention in the flash
-kernel), and holds each hand-written kernel against its plain PyTorch
-version.  Phases, each one JSON line:
+(granite-3-8b, mixtral-8x7b at 16 of its 32 layers, recurrentgemma-9b,
+mamba2-780m, llama-3.2-vision-11b and seamless-m4t-medium at full width,
+their prefill self-attention in the flash kernel, the encoder's
+bidirectional), and holds each hand-written kernel against its plain
+PyTorch version.  Phases, each one JSON line:
 
   env        torch / CUDA versions and the card
   build      seconds to build the CUDA kernels (nvcc, at first use)
@@ -159,14 +160,19 @@ version.  Phases, each one JSON line:
 
   lm_kernels  flash_attention's two kernels vs the plain version at the
              serve path's shape (B 4, Hq 32, Hkv 8, S 2048, D 128, bf16,
-             causal) and at small ones (f32/bf16/f16, D 16-256, groups
-             1/4/8/16, windows 40-256 inside and across key tiles,
-             non-causal, ragged S, Sq < Skv), each with
+             causal), at each family cell's (FAMILY_CELLS: the windows of
+             mixtral and recurrentgemma, llama-3.2-vision's GQA 32/8,
+             seamless-m4t's decoder at D 64 causal over 256 tokens and its
+             encoder non-causal, MHA 16/16 at D 64 over 4,096 frames) and
+             at small ones (f32/bf16/f16, D 16-256, groups 1/4/8/16,
+             windows 40-256 inside and across key tiles, non-causal, ragged
+             S, Sq < Skv, non-causal D 64 on whole tiles), each with
              near-uniform and with peaked logits, each call on the route the
              rule gives (the general kernel also at the sm90 kernel's
-             shapes); at the path's shape the sm90 kernel and the general
-             one (the first design) timed in turns beside the plain version
-             and SDPA, with TFLOP/s and the share of the bound
+             shapes); at the serve path's shape and at the encoder's the
+             sm90 kernel and the general one (the first design) timed in
+             turns beside the plain version and SDPA (causal / not), with
+             TFLOP/s and the share of the bound
   serve      granite-3-8b at full width (bf16, attn_impl="flash", random
              weights from the seed, initialized on the card, the GW S freed
              first): ServeEngine.generate on 4 prompts of 2048 tokens, 32
@@ -193,6 +199,21 @@ version.  Phases, each one JSON line:
              its weight-read bound (moe: the experts chosen in the step),
              the share of (token, choice) pairs dropped at capacity (moe),
              peak memory, the card's name and power limit
+  serve_vlm, serve_encdec  the cross-attention families, the same way
+             and with the same gates: llama-3.2-vision-11b whole (20.2 GB)
+             on 4 prompts of 2,048 tokens, each with 1,600 vision tokens of
+             width 1,280, and seamless-m4t-medium whole on 8 requests of
+             4,096 audio frames of width 1,024 with 256-token decoder
+             prompts, 32 new tokens each: 40 / 24 flash launches, all sm90,
+             the encoder's 12 non-causal; each vlm cross gate opened to
+             tanh(gate) in [0.25, 0.75] (drawn from the seed) before the
+             run; the cross path live: the prefill's logits with the vision
+             embeddings (frames) zeroed differ in every row by far more
+             than the tolerance; flash against chunked also on the
+             encoder's memory (encdec); decode steps 1, 8 and 32 against
+             the forward, gated in float32 on the first request; the
+             decode bound also with the caches read (the cross K/V
+             included)
 
 Then a line listing every ported kernel, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
@@ -274,6 +295,8 @@ BF16_FLOPS = 989e12               # H100 SXM, bf16 / f16 tensor cores, dense
 # compute capability 9.0), 132 SMs, 1.98 GHz (the clock of the data
 # sheet's FP64 rate, which has 64 lanes an SM too)
 INT32_INSTR_PER_S = 132 * 64 * 1.98e9
+# instructions issued: 4 warp-instructions an SM a clock, 32 lanes each
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 # The serving cell: granite-3-8b at full width, 4 requests of 2048-token
 # prompts, 32 new tokens each (the KV cache holds prompt + new tokens).
 LM_ARCH = "granite-3-8b"
@@ -284,10 +307,15 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # them (47.0 GB) leave room for the chunked comparison and the dispatch
 # buffers.  Its prompts are 1.5x its 4,096-token window, recurrentgemma's
 # 2x its 2,048-token local window.
+# llama-3.2-vision-11b (20.2 GB) and seamless-m4t-medium (1.8 GB) are
+# whole: image-grounded chat (1,600 vision tokens, long text prompts) and
+# speech translation (4,096 audio frames, short decoder prompts).
 FAMILY_CELLS = (
     ("serve_moe", "mixtral-8x7b", {"n_layers": 16}, 2, 6144, 32),
     ("serve_hybrid", "recurrentgemma-9b", {}, 4, 4096, 32),
     ("serve_ssm", "mamba2-780m", {}, 4, 4096, 32),
+    ("serve_vlm", "llama-3.2-vision-11b", {}, 4, 2048, 32),
+    ("serve_encdec", "seamless-m4t-medium", {}, 8, 256, 32),
 )
 # (B, Hq, Hkv, Sq, Skv, D, causal, window) of the small flash checks:
 # groups 1, 4 and 8; ragged S; a window of 48 against key tiles of 64; Sq <
@@ -305,7 +333,8 @@ FA_CASES = [
 # 128-row query and key tiles, a window of 48 inside one key tile, Sq < Skv,
 # non-causal with Sq > Skv; recurrentgemma's MQA (16 query heads on one kv
 # head) at D 256 with a window inside one key tile and one across several;
-# mixtral's GQA 32/8 at D 128 with a window below Sq.
+# mixtral's GQA 32/8 at D 128 with a window below Sq; non-causal MHA at D
+# 64 on whole query and key tiles (the encoder's mode: no tile masked).
 SM90_CASES = [
     (1, 8, 2, 333, 333, 128, True, None),
     (1, 8, 1, 300, 300, 128, True, 48),
@@ -315,6 +344,7 @@ SM90_CASES = [
     (1, 16, 1, 300, 300, 256, True, 40),
     (2, 16, 1, 530, 530, 256, True, 200),
     (1, 32, 8, 700, 700, 128, True, 256),
+    (2, 16, 16, 384, 512, 64, False, None),
 ]
 
 
@@ -912,13 +942,12 @@ def check_flash(q, k, v, causal, window, qk_scale, general=False) -> float:
 
 
 def lm_kernel_phase(dev) -> dict:
-    """flash_attention's two kernels vs the plain version at small shapes
-    and at the serve path's; the two kernels timed in turns at the path's
-    shape.  Returns the timing entries of both."""
-    import torch.nn.functional as F
-
+    """flash_attention's two kernels vs the plain version at small shapes,
+    at the serve path's and at the family cells'; the two kernels timed in
+    turns at the serve path's shape and at the encoder's (non-causal).
+    Returns the timing entries of both, the encoder's under
+    ``"noncausal"``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     half = (torch.bfloat16, torch.float16)
@@ -952,46 +981,88 @@ def lm_kernel_phase(dev) -> dict:
                       fa_ops.flash_attention(*peaked)),
           "flash_attention: two launches differ at the path's shape")
     del peaked
-    # the decoder families' attention at their cells' shapes (FAMILY_CELLS):
+    # the families' attention at their cells' shapes (FAMILY_CELLS):
     # mixtral's GQA 32/8 with its 4,096 window over 6,144 tokens,
-    # recurrentgemma's MQA at D 256 with its 2,048 local window
+    # recurrentgemma's MQA at D 256 with its 2,048 local window,
+    # llama-3.2-vision's GQA 32/8, seamless-m4t's decoder (causal, D 64)
+    # and its encoder (non-causal, MHA 16/16 at D 64 over the frames)
+    enc, enc_err = None, 0.0
     for _, arch, over, n_batch, prompt, _ in FAMILY_CELLS:
         c = get_config(arch).replace(**over)
         if c.family == "ssm":
             continue
         window = c.sliding_window or c.local_window
-        for qs in FA_QK_SCALES:
-            err = max(err, check_flash(*fa_inputs(
-                gen, n_batch, c.n_heads, c.n_kv_heads, prompt, prompt, c.hd,
-                torch.bfloat16, dev, qs), True, window, qs))
-        torch.cuda.empty_cache()
+        shapes = [(prompt, True, window)]
+        if c.family == "encdec":
+            enc = (n_batch, c.n_heads, c.n_kv_heads, c.audio_frames, c.hd)
+            shapes.append((c.audio_frames, False, None))
+        for n, causal, win in shapes:
+            for qs in FA_QK_SCALES:
+                e = check_flash(*fa_inputs(
+                    gen, n_batch, c.n_heads, c.n_kv_heads, n, n, c.hd,
+                    torch.bfloat16, dev, qs), causal, win, qs)
+                err = max(err, e)
+                if not causal:
+                    enc_err = max(enc_err, e)
+            torch.cuda.empty_cache()
     q, k, v = fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16, dev)
     err = max(err, check_flash(q, k, v, True, None, FA_QK_SCALES[0]))
     err_general = max(err_general, check_flash(
         q, k, v, True, None, FA_QK_SCALES[0], general=True))
-    # operations: two products of 2 flops per multiply-add over the
-    # S (S + 1) / 2 causal (query, key) pairs; bytes: q, k, v read once,
-    # o written once
-    flops = 4 * B * hq * D * (S * (S + 1) // 2)
+    out = time_flash(q, k, v, True, err, err_general)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # the encoder's bidirectional attention, timed the same way
+    eb, ehq, ehkv, es, ed = enc
+    q, k, v = fa_inputs(gen, eb, ehq, ehkv, es, es, ed, torch.bfloat16, dev)
+    enc_err_general = check_flash(q, k, v, False, None, FA_QK_SCALES[0],
+                                  general=True)
+    noncausal = time_flash(q, k, v, False, enc_err, enc_err_general)
+    for name in out:
+        out[name]["noncausal"] = noncausal[name]
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash(q, k, v, causal, err, err_general) -> dict:
+    """flash_attention's sm90 kernel and its general one timed in turns
+    beside the plain version and SDPA on (q, k, v) (Sq == Skv), with the
+    bound: two products of 2 flops a multiply-add over the (query, key)
+    pairs the mask keeps (S (S + 1) / 2 a head under causality, S^2
+    without); q, k, v read once and o written once.  Returns the timing
+    entry of each kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, hq, S, D = q.shape
+    hkv = k.shape[1]
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * hq * D * pairs
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
     try:    # the library call: PyTorch's fused attention, GQA in place
-        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                        enable_gqa=True)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, is_causal=True, enable_gqa=True)
+            q, k, v, is_causal=causal, enable_gqa=True)
     except TypeError:   # an older PyTorch: K/V repeated outside the timing
         kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, kr, vr, is_causal=True)
+            q, kr, vr, is_causal=causal)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    kernels = {"flash_attention": lambda: fa_ops.flash_attention(q, k, v),
+    kernels = {"flash_attention":
+                   lambda: fa_ops.flash_attention(q, k, v, causal=causal),
                "flash_attention_general":
-                   lambda: fa_ops._flash_attention_general(q, k, v)}
+                   lambda: fa_ops._flash_attention_general(q, k, v,
+                                                           causal=causal)}
     # in turns: sm90, general, plain, library, general, sm90
     turns = {name: [] for name in (*kernels, "plain", "library")}
     for name in ("flash_attention", "flash_attention_general"):
         turns[name].append(time_ms(kernels[name], 10))
-    turns["plain"].append(time_ms(lambda: attention_ref(q, k, v), 10))
+    turns["plain"].append(time_ms(
+        lambda: attention_ref(q, k, v, causal=causal), 10))
     turns["library"].append(time_ms(library, 10))
     for name in ("flash_attention_general", "flash_attention"):
         turns[name].append(time_ms(kernels[name], 10))
@@ -1003,7 +1074,8 @@ def lm_kernel_phase(dev) -> dict:
                      "library_ms": turns["library"][0], "bound_ms": b_ms,
                      "bound_by": b_by, "max_abs_err": e}
         emit("lm_kernels", kernel=name, timing_shape=[B, hq, hkv, S, D],
-             dtype=str(q.dtype), gflop=flops / 1e9, turns_ms=turns[name],
+             causal=causal, dtype=str(q.dtype), gflop=flops / 1e9,
+             turns_ms=turns[name],
              achieved_tflop_s=flops / (ms * 1e-3) / 1e12,
              bound_share=b_ms / ms,
              library_tflop_s=flops / (turns["library"][0] * 1e-3) / 1e12,
@@ -1191,6 +1263,42 @@ def attention_layerwise(params, cfg, batch) -> list:
     return worst
 
 
+# The cross path's liveness gate.  A dead cross path (a gate left at 0, the
+# memory unused) moves nothing when the vision / frame embeddings are
+# zeroed: the same path on the same input gives the same bits, so in bf16
+# every row of the prefill's logits must move at all.  At random weights a
+# live one moves llama-3.2-vision's rows by only ~2-3% (its 8 cross blocks
+# average 1,600 memory rows each), under the 8-eps flash-vs-chunked
+# tolerance, so the margin is taken in float32 on the first request (the
+# float32 decode check's model): the move there must exceed
+# CROSS_LIVE_F32_TOLS x F32_DECODE_TOL.
+CROSS_LIVE_F32_TOLS = 10
+# The cached cross decode on the bf16 memory (read as it is) against the
+# same function on the memory cast to float32, elementwise
+# (cross_decode_tol): both sides sum exact products in float32 in other
+# orders (q and the probabilities as three bf16 pieces on one side).
+CROSS_DECODE_EPS = 2.0
+
+
+def cross_decode_tol(q, k32, v32):
+    """The elementwise tolerance of cross_attend_cached(q, k, v) on a bf16
+    memory against the float32 route: a logit is a sum of hd products,
+    off by ~eps sqrt(hd) of its terms' magnitudes, at most lmax = max_s
+    |q| . |k_s| in a row, which moves the output by that much of
+    attention(q, k, |v|); the output sums S products, off by ~eps sqrt(S)
+    of attention(q, k, |v|).  CROSS_DECODE_EPS times the two."""
+    from repro_torch.models.attention import cross_attend_cached
+
+    B, _, H, hd = q.shape
+    K, S = k32.shape[1], k32.shape[2]
+    lmax = torch.bmm(q.abs().reshape(B * K, H // K, hd),
+                     k32.abs().reshape(B * K, S, hd).transpose(1, 2)
+                     ).amax(-1).reshape(B, 1, H, 1)
+    a = cross_attend_cached(q, k32, v32.abs()).reshape(B, 1, H, hd)
+    eps = torch.finfo(torch.float32).eps
+    tol = CROSS_DECODE_EPS * eps * (S ** 0.5 + hd ** 0.5 * lmax) * a
+    return tol.reshape(B, 1, H * hd)
+
 # float32 decode against the forward: both paths sum in f32 in other
 # orders (GEMMs of up to 16,512 rows against 1, the recurrent and the
 # chunked/scanned SSD and RG-LRU), ~eps * sqrt(n) ~ 1.3e-5 a GEMM; the
@@ -1199,31 +1307,54 @@ def attention_layerwise(params, cfg, batch) -> list:
 F32_DECODE_TOL = 1e-3
 
 
-def decode_vs_forward_f32(cfg, params, prompt, fed, steps) -> dict:
+def decode_vs_forward_f32(cfg, params, prompt, fed, steps,
+                          extras=None) -> tuple:
     """The model in float32 (its bf16 weights cast, exactly): decode from
     the prompt's prefill, fed the tokens ``fed``; step i's logits against
-    the prefill over the prompt and the first i tokens fed.  Returns the
-    largest row's relative L2 error at each step of ``steps``."""
+    the prefill over the prompt and the first i tokens fed.  ``extras``:
+    the batch's vision / frame embeddings (cast too).  Returns the largest
+    row's relative L2 error at each step of ``steps``, and with ``extras``
+    the least row's relative move of the prompt's prefill logits when they
+    are zeroed (else None)."""
     from repro_torch.models import api
 
     c32 = cfg.replace(dtype="float32")
     p32 = _tree_map(lambda t: t.float(), params)
+    x32 = {k: t.float() for k, t in (extras or {}).items()}
     n = max(steps)
-    _, cache = api.prefill(c32, p32, {"tokens": prompt},
-                           max_len=prompt.shape[1] + n)
+    first, cache = api.prefill(c32, p32, {"tokens": prompt, **x32},
+                               max_len=prompt.shape[1] + n)
+    live = None
+    if x32:
+        zeroed, c = api.prefill(c32, p32, {"tokens": prompt, **{
+            k: torch.zeros_like(t) for k, t in x32.items()}},
+            max_len=prompt.shape[1])
+        del c
+        live = float(row_rel_errors(zeroed, first).min())
+        del zeroed
     out = {}
     for i in range(1, n + 1):
         step_logits, cache = api.decode_step(c32, p32, fed[i - 1], cache,
                                              inplace=True)
         if i in steps:
             seq = torch.cat([prompt] + [t[:, None] for t in fed[:i]], dim=1)
-            full, c = api.prefill(c32, p32, {"tokens": seq},
+            full, c = api.prefill(c32, p32, {"tokens": seq, **x32},
                                   max_len=seq.shape[1])
             del c
             out[i] = float(row_rel_errors(step_logits, full).max())
     del p32, cache
     torch.cuda.empty_cache()
-    return out
+    return out, live
+
+
+def open_cross_gates(params, dev):
+    """A vlm's parameters with each cross block's gate set so that
+    tanh(gate) is drawn uniformly from [0.25, 0.75] (from the seed); at
+    its initial 0 a cross block adds nothing."""
+    u = torch.rand((len(params.cross),), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev) * 0.5 + 0.25
+    return params._replace(cross=[
+        dict(cp, gate=torch.atanh(t)) for cp, t in zip(params.cross, u)])
 
 
 def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
@@ -1261,14 +1392,31 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     recurrent SSD / RG-LRU against the chunked / scanned ones, and the
     recurrent state carries them from step to step), float32 on the first
     prompt gated at F32_DECODE_TOL.  moe is exempt: its prefill drops
-    pairs that decode keeps."""
+    pairs that decode keeps.
+
+    vlm and encdec: the batch carries the stub vision / frame embeddings
+    (make_batch, bf16 from the seed).  Each vlm cross gate is set first so
+    that tanh(gate) lies in [0.25, 0.75] (at its initial 0 a cross block
+    adds nothing and a wrong cross path would pass every gate); the cross
+    path must be live: with the embeddings zeroed every row of the
+    prefill's logits moves (bf16), and the first request's by more than
+    CROSS_LIVE_F32_TOLS x F32_DECODE_TOL in float32.  Each layer's cached
+    cross decode on the prefill's bf16 memory holds to the float32 route
+    elementwise (cross_decode_tol).  The encoder's flash launches are the
+    non-causal ones, and its memory is held flash against chunked too."""
     from repro_torch.models import api, moe
+    from repro_torch.models import transformer as tfm
     from repro_torch.serving import ServeEngine
 
-    check(cfg.dtype == "bfloat16" and cfg.family in ("moe", "ssm", "hybrid"),
+    check(cfg.dtype == "bfloat16" and cfg.family in (
+        "moe", "ssm", "hybrid", "vlm", "encdec"),
           f"{phase}: unexpected config {cfg}")
     n_attn = {"moe": cfg.n_layers, "ssm": 0,
-              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+              "vlm": cfg.n_layers // max(cfg.cross_every, 1)
+              * cfg.cross_every,
+              "encdec": cfg.encoder_layers + cfg.n_layers}[cfg.family]
+    n_noncausal = cfg.encoder_layers if cfg.family == "encdec" else 0
     max_len = prompt + gen_len
     tol = 8 * torch.finfo(torch.bfloat16).eps
     torch.cuda.synchronize()
@@ -1278,8 +1426,16 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     params = api.init_params(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    gates = None
+    if cfg.family == "vlm":
+        params = open_cross_gates(params, dev)
+        gates = torch.tanh(torch.stack([cp["gate"] for cp in params.cross]))
+        check(bool(((gates >= 0.25) & (gates <= 0.75)).all()),
+              f"{phase}: tanh(gate) {gates.tolist()} outside [0.25, 0.75]")
+        gates = gates.tolist()
     weight_bytes = sum(t.nbytes for t in _tree_tensors(params))
     batch = api.make_batch(cfg, SEED, batch_size, prompt, device=dev)
+    extras = {k: t for k, t in batch.items() if k in ("vision", "frames")}
     eng = ServeEngine(cfg, params, max_len=max_len)
 
     # the main path, launches counted from 0 just before it
@@ -1294,9 +1450,11 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches["flash_attention"] == n_attn
-          and launches["flash_attention_sm90"] == n_attn,
+          and launches["flash_attention_sm90"] == n_attn
+          and launches["flash_attention_noncausal"] == n_noncausal,
           f"{phase}: {launches} flash launches in one generate, expected "
-          f"{n_attn}, all on the sm90 route")
+          f"{n_attn}, all on the sm90 route, {n_noncausal} of them "
+          f"non-causal")
     dropped = (float(routing["dropped"]) / routing["pairs"]
                if routing["pairs"] else None)
     t0 = time.perf_counter()
@@ -1317,8 +1475,44 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     prefill_ms = (time.perf_counter() - t0) * 1e3
     check(tuple(logits.shape) == (batch_size, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), f"{phase}: prefill logits")
-    cache_bytes = sum(t.nbytes for t in _tree_tensors(cache.self_kv))
+    cache_bytes = sum(t.nbytes for t in _tree_tensors(cache))
+    cross_decode_rel = None
+    if extras:
+        # the cached cross decode on each layer's bf16 memory, read as it
+        # is, against the same function on the memory cast to float32
+        from repro_torch.models.attention import cross_attend_cached
+
+        mems = (cache.cross_kv if cfg.family == "vlm"
+                else list(zip(cache.cross_k, cache.cross_v)))
+        qgen = torch.Generator(device=dev).manual_seed(SEED)
+        cross_decode_rel = 0.0    # the worst |a - r| over its tolerance
+        for mk, mv in mems:
+            q = torch.randn((batch_size, 1, cfg.n_heads, cfg.hd),
+                            generator=qgen, device=dev) * cfg.hd ** -0.5
+            a = cross_attend_cached(q, mk, mv)
+            k32, v32 = mk.float(), mv.float()
+            r = cross_attend_cached(q, k32, v32)
+            tol_e = cross_decode_tol(q, k32, v32)
+            cross_decode_rel = max(cross_decode_rel,
+                                   float(((a - r).abs() / tol_e).max()))
+            del a, r, k32, v32, tol_e
+        check(cross_decode_rel <= 1.0,
+              f"{phase}: cached cross decode on the bf16 memory vs the "
+              f"float32 route: {cross_decode_rel} x its tolerance")
     del cache
+
+    # the cross path is live: the embeddings zeroed move every row
+    cross_live = None
+    if extras:
+        zeroed, c = api.prefill(cfg, params, {**batch, **{
+            k: torch.zeros_like(t) for k, t in extras.items()}},
+            max_len=prompt)
+        del c
+        cross_live = row_rel_errors(zeroed, logits)
+        check(float(cross_live.min()) > 0.0,
+              f"{phase}: the {'/'.join(extras)} zeroed leave a row of the "
+              f"prefill's logits as it was: the cross path is dead")
+        del zeroed
 
     # the forward at every prompt position: flash against chunked, with
     # each token's experts and kept pairs at every layer (moe)
@@ -1333,6 +1527,15 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
                                  batch)
     rel = row_rel_errors(flash, ref)
     del flash, ref
+    memory_rel = None
+    if cfg.family == "encdec":
+        # the encoder's memory, flash (non-causal) against chunked
+        memory_rel = float(row_rel_errors(
+            tfm.encode_audio(params, cfg, batch["frames"]),
+            tfm.encode_audio(params, cfg.replace(attn_impl="chunked"),
+                             batch["frames"])).max())
+        check(memory_rel <= tol, f"{phase}: flash vs chunked encoder "
+              f"memory, rows up to {memory_rel} > {tol}")
     if n_attn == 0:
         check(float(rel.max()) == 0.0,
               f"{phase}: no attention, yet flash and chunked differ")
@@ -1387,22 +1590,28 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     # decode step i (from 1) against the prefill (a full forward) over the
     # prompt + i tokens: in bf16 reported, in float32 (the same weights,
     # cast exactly) on the first prompt gated
-    vs_forward, vs_forward_f32 = {}, {}
+    vs_forward, vs_forward_f32, cross_live_f32 = {}, {}, None
     if cfg.family != "moe":
         steps = (1, 8, gen_len)
         for i in steps:
             seq = torch.cat([batch["tokens"]] + [t[:, None] for t in fed[:i]],
                             dim=1)
-            full, c = api.prefill(cfg, params, {"tokens": seq},
+            full, c = api.prefill(cfg, params, {"tokens": seq, **extras},
                                   max_len=seq.shape[1])
             del c
             vs_forward[i] = float(row_rel_errors(outs[i - 1], full).max())
-        vs_forward_f32 = decode_vs_forward_f32(
-            cfg, params, batch["tokens"][:1], [t[:1] for t in fed], steps)
+        vs_forward_f32, cross_live_f32 = decode_vs_forward_f32(
+            cfg, params, batch["tokens"][:1], [t[:1] for t in fed], steps,
+            {k: t[:1] for k, t in extras.items()})
         worst = max(vs_forward_f32.values())
         check(worst <= F32_DECODE_TOL,
               f"{phase}: float32 decode steps vs the forward over the prompt "
               f"and the tokens fed: {vs_forward_f32} > {F32_DECODE_TOL}")
+        check(cross_live_f32 is None or cross_live_f32
+              > CROSS_LIVE_F32_TOLS * F32_DECODE_TOL,
+              f"{phase}: in float32 the {'/'.join(extras)} zeroed move the "
+              f"first request's logits by only {cross_live_f32} <= "
+              f"{CROSS_LIVE_F32_TOLS} x {F32_DECODE_TOL}")
 
     # the least time of a decode step: each weight read once (a tied head
     # reads the whole embedding; an untied one reads one row a token of
@@ -1417,6 +1626,9 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
         read -= cfg.n_layers * cfg.n_experts * per_expert
         read += experts_a_step * per_expert
     bound_ms = read / HBM_BYTES_PER_S * 1e3
+    # with the caches read too: every KV slot (decode reads the whole
+    # cache), the recurrent states and the cross K/V
+    read_all_ms = (read + cache_bytes) / HBM_BYTES_PER_S * 1e3
     emit(phase, arch=cfg.name, family=cfg.family, dtype=cfg.dtype,
          n_layers=cfg.n_layers, attn_impl=cfg.attn_impl,
          params_b=cfg.param_count() / 1e9, weight_gb=weight_bytes / 1e9,
@@ -1433,6 +1645,18 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
          decode_weight_bound_ms=bound_ms,
          decode_bound_share=bound_ms / decode_ms,
          cache_gb=cache_bytes / 1e9,
+         decode_read_bound_ms=read_all_ms,
+         decode_read_bound_share=read_all_ms / decode_ms,
+         cross_gates=gates,
+         cross_live_row_rel_min=(None if cross_live is None
+                                 else float(cross_live.min())),
+         cross_live_row_rel_median=(None if cross_live is None
+                                    else float(cross_live.median())),
+         cross_live_f32_first_request=cross_live_f32,
+         cross_live_f32_gate=(CROSS_LIVE_F32_TOLS * F32_DECODE_TOL
+                              if extras else None),
+         cross_decode_vs_f32_over_tol=cross_decode_rel,
+         encoder_memory_row_rel_max=memory_rel,
          decode_experts_read_a_step=experts_a_step,
          prefill_dropped_pair_share=dropped,
          moe_capacity=(max(1, int(min(cfg.moe_group_size,
@@ -2185,16 +2409,23 @@ def sketch_omega_phase(S, dev) -> dict:
     draws = 2 * out.numel()  # a Threefry evaluation each
     entry = None
     for kind in ("gaussian", "rademacher"):
-        # operations: the integer-ALU operations the draws need
+        # operations: the integer-ALU operations the draws need on the ALU
+        # pipe, or every instruction they must issue at the issue rate,
+        # whichever takes longer (ops.ISSUE_PER_DRAW)
         alu = draws * so_ops.ALU_OPS_PER_DRAW[kind]
+        issue = draws * so_ops.ISSUE_PER_DRAW[kind]
+        ops, rate = max((alu, INT32_INSTR_PER_S), (issue, ISSUE_PER_S),
+                        key=lambda o: o[0] / o[1])
         t = timed("sketch_omega", list(shape), torch.complex64, out.nbytes,
-                  alu, errs[kind], 50,
+                  ops, errs[kind], 50,
                   lambda: so_ops.sketch_omega(SEED, 0, out, kind),
                   lambda: sketch_omega_ref(SEED, 0, shape, torch.complex64,
                                            kind, dev),
-                  None, flops_per_s=INT32_INSTR_PER_S)
+                  None, flops_per_s=rate)
         emit("kernels", kernel="sketch_omega", kind=kind,
-             threefry_calls=draws, alu_ops=alu,
+             threefry_calls=draws, alu_ops=alu, issued=issue,
+             alu_pipe_ms=alu / INT32_INSTR_PER_S * 1e3,
+             issue_ms=issue / ISSUE_PER_S * 1e3,
              bound_share=t["bound_ms"] / t["ms"])
         if entry is None:
             entry = t
@@ -3225,6 +3456,7 @@ def reset_counts() -> None:
         mods[name].launches_sm90 = mods[name].launches_general = 0
     gl = mods["greedy_update_lanes"]
     gl.launches_lanes = gl.launches_per_lane = 0
+    mods["flash_attention"].launches_noncausal = 0
 
 
 def read_counts() -> dict:
@@ -3236,6 +3468,8 @@ def read_counts() -> dict:
     gl = mods["greedy_update_lanes"]
     counts["greedy_update_lanes_lanes"] = gl.launches_lanes
     counts["greedy_update_lanes_per_lane"] = gl.launches_per_lane
+    counts["flash_attention_noncausal"] = \
+        mods["flash_attention"].launches_noncausal
     return counts
 
 
@@ -3799,8 +4033,8 @@ def main() -> None:
     timings.update(lm_kernel_phase(dev))
     serve_launches = serve_phase(dev, reset_counts, read_counts)
 
-    # --- the decoder-only families (moe, hybrid, ssm) at full width, each
-    # model freed before the next
+    # --- the other families (moe, hybrid, ssm, vlm, encdec) at full width,
+    # each model freed before the next
     from repro_torch.configs import get_config
     family_launches = {
         phase: family_serve_phase(
@@ -3898,8 +4132,13 @@ def main() -> None:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
-                        **{x: t[x] for x in ("by_batch", "stacked")
-                           if x in t}})
+                        **{x: t[x] for x in ("by_batch", "stacked",
+                                             "noncausal") if x in t}})
+        if name == "flash_attention":
+            # the encoder's bidirectional launches (either route)
+            kernels[-1]["noncausal_launches_by_path"] = {
+                phase: n["flash_attention_noncausal"]
+                for phase, n in family_launches.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,12 +22,15 @@
 // version's bit for bit; a gaussian element differs from them only through
 // erfinv (CUDA's erfinvf / erfinv against XLA's and PyTorch's CPU ones).
 //
-// Bound on the H100: integer issue, not bytes.  The paper's tile (65,536 x
-// 110 complex64) writes 57.7 MB, 0.017 ms at 3.35 TB/s; its 14.4 M
-// Threefry evaluations need 20 rotates and 20 xors each on the integer ALU
-// pipe, plus 3 (gaussian) or 1 (rademacher) operations of the
-// bits-to-float step (the 30 adds can issue as IMADs on the FMA pipe),
-// 0.037 / 0.035 ms at 64 an SM a clock.  The design is the plain one:
+// Bound on the H100: instruction issue, not bytes.  The paper's tile
+// (65,536 x 110 complex64) writes 57.7 MB, 0.017 ms at 3.35 TB/s; its
+// 14.4 M Threefry evaluations need 20 rotates and 20 xors each on the
+// integer ALU pipe, plus 3 (gaussian) or 1 (rademacher) operations of the
+// bits-to-float step, 0.037 / 0.035 ms at 64 an SM a clock; the adds can
+// go to the FMA pipe, but they take issue slots too: a gaussian draw issues
+// 102 instructions (its adds, ALU work, erfinvf; ops.py ISSUE_PER_DRAW),
+// 0.044 ms at 4 warp-instructions an SM a clock, which binds (rademacher:
+// 64, 0.028 ms, so its ALU pipe binds).  The design is the plain one:
 // each thread draws whole elements in a grid-stride loop (a complex
 // element is two evaluations and one 8- or 16-byte store, a warp's stores
 // contiguous), the key words in registers, the rotations funnel shifts,

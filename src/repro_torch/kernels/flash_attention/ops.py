@@ -13,7 +13,9 @@ raises:
   stablelm's 80 among them) and unaligned views.
 
 ``launches`` counts calls that launched either kernel; ``launches_sm90``
-and ``launches_general`` count them by route.
+and ``launches_general`` count them by route, ``launches_noncausal`` those
+of either route without the causal mask (an encoder's bidirectional
+attention).
 
 The kernel masks ragged sequence ends itself (no padding, no fallback) and
 reads q, k, v through their strides, so the transposed (B, S, H, D)
@@ -35,6 +37,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 launches = 0
 launches_sm90 = 0
 launches_general = 0
+launches_noncausal = 0
 
 SM90_HEAD_DIMS = (64, 128, 256)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -120,7 +123,7 @@ def _flash_attention_general(q, k, v, causal=True, window=None,
 
 
 def _flash(q, k, v, causal, window, sm_scale, general):
-    global launches, launches_sm90, launches_general
+    global launches, launches_sm90, launches_general, launches_noncausal
     _check_shapes(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -169,4 +172,6 @@ def _flash(q, k, v, causal, window, sm_scale, general):
         launches_sm90 += 1
     else:
         launches_general += 1
+    if not causal:
+        launches_noncausal += 1
     return out

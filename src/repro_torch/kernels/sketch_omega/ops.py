@@ -26,20 +26,30 @@ from repro_torch.kernels.sketch_omega.ref import (
 
 launches = 0
 
-# Integer-ALU operations one draw (one real value) needs, what the bound
-# counts: its Threefry evaluation's 20 rotates and 20 xors, which only the
-# ALU pipe issues (the 30 adds can issue as IMADs on the FMA pipe, whose
-# rate is the same), and the bits-to-float step: the xor of the two words,
-# the shift and the or of the exponent for a gaussian draw, the or of the
-# sign into 1.0 for a rademacher one.  A complex element is two draws.
-# The gaussian draw's erfinvf adds float work on the FMA and MUFU pipes:
-# 66 float instructions a complex64 element in the kernel's SASS
-# (``tools/sass_mix.py sketch_omega``, both branches of its polynomial
-# counted); with the 86 integer operations that is 152 instructions an
-# element at 4 warp-instructions an SM a clock, which binds less than the
-# integer pipe's 86 at 64 lanes an SM a clock, so the ALU count is the
-# bound.
+# Integer-ALU operations one draw (one real value) needs, the integer
+# pipe's share of the bound: its Threefry evaluation's 20 rotates and 20
+# xors, which only the ALU pipe issues, and the bits-to-float step: the xor
+# of the two words, the shift and the or of the exponent for a gaussian
+# draw, the or of the sign into 1.0 for a rademacher one.  A complex
+# element is two draws.  The adds can issue on the FMA pipe (as IMADs) at
+# the same rate, so they are not the ALU pipe's; but every instruction
+# takes an issue slot, whichever pipe runs it, so the bound is also the
+# instructions a draw must issue (ISSUE_PER_DRAW) at 4 warp-instructions an
+# SM a clock, and it is the larger of the two times.
 ALU_OPS_PER_DRAW = {"gaussian": 43, "rademacher": 41}
+# Instructions one draw must issue, from the kernel's SASS
+# (``tools/sass_mix.py sketch_omega``, the complex64 loops; a complex
+# element is two draws).  gaussian: Threefry's 20 round adds and its key
+# injections as compiled, 27 (16 IMAD.IADD, 7 IADD3, 1 IADD3.X, 3 VIADD:
+# two adds of an injection fuse into one IADD3 with the next round's), its
+# 20 rotates (SHF), 20 xors and the draw's integer steps as compiled (21
+# LOP3, 1 LEA.HI: the shift and the or of the exponent fused), and the
+# draw's float and MUFU instructions with both branches of erfinvf and the
+# scaling (33: 66 an element); 102 in all, 204 an element.  rademacher:
+# the last round's rotate and xor of the discarded word and its last
+# injection are not compiled: 25 adds, 19 rotates, 19 xors and the sign's
+# select, 64.
+ISSUE_PER_DRAW = {"gaussian": 102, "rademacher": 64}
 
 _U = ctypes.c_uint
 _SIGNATURES = {

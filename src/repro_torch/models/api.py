@@ -1,10 +1,10 @@
 """Family-dispatched public model API: init / forward / prefill / decode.
 
-The port of :mod:`repro.models.api` for the decoder-only families the
-port runs (dense, moe, ssm, hybrid; ``loss_fn`` waits with training).
-Every function runs on the device of the parameters; :func:`init_params`
-and :func:`make_batch` put them on ``cuda`` unless the caller passes
-``device="cpu"``.
+The port of :mod:`repro.models.api` for every family (``loss_fn`` waits
+with training); ``encdec`` dispatches to the encoder-decoder, the rest to
+the decoder.  Every function runs on the device of the parameters;
+:func:`init_params` and :func:`make_batch` put them on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
 
 
 def _generator(seed_or_gen, device) -> torch.Generator:
@@ -30,23 +31,38 @@ def _generator(seed_or_gen, device) -> torch.Generator:
 def init_params(cfg: ModelConfig, seed_or_gen=0, device=None):
     """Random parameters from a seed (or a ``torch.Generator``, whose
     device then decides where they live), drawn on the device itself."""
-    return tfm.init_decoder(_generator(seed_or_gen, device), cfg)
+    gen = _generator(seed_or_gen, device)
+    if cfg.family == "encdec":
+        return tfm.init_encdec(gen, cfg)
+    return tfm.init_decoder(gen, cfg)
 
 
 def forward_logits(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
-    """Teacher-forced logits (B, S, V)."""
-    return tfm.decoder_forward(params, cfg, batch["tokens"])
+    """Teacher-forced logits (B, S, V) for any family: ``batch`` holds
+    ``tokens``, and ``vision`` (vlm) or ``frames`` (encdec)."""
+    if cfg.family == "encdec":
+        return tfm.encdec_forward(params, cfg, batch["frames"],
+                                  batch["tokens"])
+    return tfm.decoder_forward(params, cfg, batch["tokens"],
+                               vision_embeds=batch.get("vision"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    return tfm.init_decode_cache(cfg, batch, max_len,
-                                 device=resolve_device(device))
+    device = resolve_device(device)
+    if cfg.family == "encdec":
+        return tfm.init_encdec_cache(cfg, batch, max_len, cfg.audio_frames,
+                                     device=device)
+    return tfm.init_decode_cache(cfg, batch, max_len, device=device)
 
 
 def prefill(cfg: ModelConfig, params, batch: dict,
             max_len: Optional[int] = None):
     """Prompt prefill -> (last-token logits (B, V), cache)."""
+    if cfg.family == "encdec":
+        return tfm.encdec_prefill(params, cfg, batch["frames"],
+                                  batch["tokens"], max_len=max_len)
     return tfm.decoder_prefill(params, cfg, batch["tokens"],
+                               vision_embeds=batch.get("vision"),
                                max_len=max_len)
 
 
@@ -55,15 +71,28 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     """One-token decode -> (logits (B, V), cache').  ``cache`` stays as it
     was unless ``inplace``, which writes into its tensors and consumes it
     (see :func:`~repro_torch.models.transformer.decoder_decode_step`)."""
+    if cfg.family == "encdec":
+        return tfm.encdec_decode_step(params, cfg, token, cache,
+                                      inplace=inplace)
     return tfm.decoder_decode_step(params, cfg, token, cache,
                                    inplace=inplace)
 
 
 def make_batch(cfg: ModelConfig, seed_or_gen, batch: int, seq: int,
                device=None) -> dict:
-    """Random smoke-test batch: prompt tokens and next-token labels."""
+    """Random smoke-test batch: prompt tokens and next-token labels, and
+    the family's stub embeddings in ``cfg.dtype``: ``vision`` (B,
+    vision_tokens, vision_dim) for vlm, ``frames`` (B, audio_frames,
+    audio_dim) for encdec, standard normal."""
     tfm.check_family(cfg)
     gen = _generator(seed_or_gen, device)
-    return {name: torch.randint(0, cfg.vocab_size, (batch, seq),
-                                generator=gen, device=gen.device)
-            for name in ("tokens", "labels")}
+    out = {name: torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device=gen.device)
+           for name in ("tokens", "labels")}
+    extra = {"vlm": ("vision", cfg.vision_tokens, cfg.vision_dim),
+             "encdec": ("frames", cfg.audio_frames, cfg.audio_dim)}
+    if cfg.family in extra:
+        name, n, width = extra[cfg.family]
+        out[name] = torch.randn((batch, n, width), generator=gen,
+                                device=gen.device, dtype=dtype_of(cfg.dtype))
+    return out

@@ -1,10 +1,10 @@
-"""Attention blocks: GQA/MQA/MHA, RoPE, sliding window, KV cache.
+"""Attention blocks: GQA/MQA/MHA, RoPE, sliding window, cross-attention,
+KV cache.
 
-The port of :mod:`repro.models.attention` for the decoder families: causal
-self-attention with RoPE (cross-attention, bidirectional attention and
-attention without RoPE wait with the vlm and encdec families).  Three
-interchangeable implementations (``cfg.attn_impl``), as in the JAX
-package:
+The port of :mod:`repro.models.attention`: causal and bidirectional
+self-attention with RoPE, and cross-attention over a memory (``kv_x``, no
+RoPE, no qkv bias).  Three interchangeable implementations
+(``cfg.attn_impl``, or a call site's ``impl``), as in the JAX package:
 
   einsum  — materialized logits; right for short sequences.
   chunked — online softmax over kv chunks (a Python loop): peak memory
@@ -34,7 +34,9 @@ from repro_torch.models.layers import dtype_of, rope, trunc_normal, zeros
 NEG_INF = -1e30
 
 
-def init_attn(gen: torch.Generator, cfg):
+def init_attn(gen: torch.Generator, cfg, cross: bool = False):
+    """Projections of one attention block; a cross projection (``cross``)
+    has no qkv bias, as in the reference."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = dtype_of(cfg.dtype)
     p = {
@@ -43,23 +45,25 @@ def init_attn(gen: torch.Generator, cfg):
         "wv": trunc_normal(gen, (d, K * hd), 1.0, dt),
         "wo": trunc_normal(gen, (H * hd, d), 1.0, dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = zeros((H * hd,), dt, gen)
         p["bk"] = zeros((K * hd,), dt, gen)
         p["bv"] = zeros((K * hd,), dt, gen)
     return p
 
 
-def _qkv(p, x, cfg):
-    B, S = x.shape[:2]
+def _qkv(p, x, cfg, kv_x=None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
+    kv_x = x if kv_x is None else kv_x
+    B, S, Skv = x.shape[0], x.shape[1], kv_x.shape[1]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, K, hd),
-            v.reshape(B, S, K, hd))
+    return (q.reshape(B, S, H, hd), k.reshape(B, Skv, K, hd),
+            v.reshape(B, Skv, K, hd))
 
 
 def _mask(Sq, Skv, causal, window, device, j=None):
@@ -77,17 +81,23 @@ def _mask(Sq, Skv, causal, window, device, j=None):
 
 
 def _einsum_attn(q, k, v, causal, window):
-    """q: (B,Sq,H,hd); k/v: (B,Skv,K,hd). Materialized-logit attention."""
+    """q: (B,Sq,H,hd); k/v: (B,Skv,K,hd). Materialized-logit attention.
+
+    The f32 logits are scaled in place and, with no mask to apply
+    (bidirectional, no window), not copied: at most two (B, H, Sq, Skv)
+    f32 arrays live at once, the logits and their softmax."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     g = H // K
     qh = q.reshape(B, Sq, K, g, hd)
     logits = torch.einsum(
         "bqkgd,bskd->bkgqs", qh.to(torch.float32), k.to(torch.float32)
-    ) * (hd ** -0.5)
-    mask = _mask(Sq, Skv, causal, window, q.device)
-    logits = torch.where(mask, logits, NEG_INF)
+    ).mul_(hd ** -0.5)
+    if causal or window is not None:
+        mask = _mask(Sq, Skv, causal, window, q.device)
+        logits = torch.where(mask, logits, NEG_INF)
     pattn = torch.softmax(logits, dim=-1)
+    del logits
     out = torch.einsum("bkgqs,bskd->bqkgd", pattn, v.to(torch.float32))
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -128,16 +138,24 @@ def multihead_attention(
     x: torch.Tensor,
     cfg,
     positions: Optional[torch.Tensor] = None,
+    kv_x: Optional[torch.Tensor] = None,
+    causal: bool = True,
     window: Optional[int] = None,
+    use_rope: bool = True,
     impl: Optional[str] = None,
     return_kv: bool = False,
 ):
-    """Full-sequence causal self-attention (train / prefill)."""
-    q, k, v = _qkv(p, x, cfg)
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    """Full-sequence attention (train / prefill / cross).  With ``kv_x``
+    the keys and values come from that memory and RoPE is not applied, as
+    in the reference; ``causal=False`` is bidirectional (the encoder, and
+    every cross call)."""
+    cross = kv_x is not None
+    q, k, v = _qkv(p, x, cfg, kv_x)
+    if use_rope and not cross:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     impl = impl or cfg.attn_impl
     if impl == "auto":
@@ -145,12 +163,12 @@ def multihead_attention(
     if impl == "flash":
         o = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window,
+            causal=causal, window=window,
         ).transpose(1, 2)
     elif impl == "chunked":
-        o = _chunked_attn(q, k, v, True, window, cfg.attn_chunk)
+        o = _chunked_attn(q, k, v, causal, window, cfg.attn_chunk)
     else:
-        o = _einsum_attn(q, k, v, True, window)
+        o = _einsum_attn(q, k, v, causal, window)
     B, S = o.shape[0], o.shape[1]
     out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
     if return_kv:
@@ -316,3 +334,68 @@ def decode_attention(
     o = o.reshape(B, 1, H * hd).to(x_t.dtype)
     out = o @ p["wo"]
     return out, cache._replace(pos=pos + 1)
+
+
+# ------------------------------------------------- cross-attention memory
+def memory_kv(k: torch.Tensor, v: torch.Tensor):
+    """A memory's keys and values (B, S, K, hd), as the decode caches hold
+    them: head-major (B, K, S, hd) and contiguous, so that the keys of one
+    (sequence, kv head) are one matrix of a batched product."""
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 batches, the products exact and summed in
+    float32: one cuBLAS product with a float32 output on the card; on the
+    CPU, which has no such product, through float32 copies."""
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
+def _split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` (N, m, n) as three bf16 pieces stacked along dim 1,
+    (N, 3m, n), whose sum is ``x`` exactly: ``hi = bf16(x)`` holds its
+    leading 8 significant bits, ``mid`` the next 8 (those of ``x - hi``,
+    an exact float32 difference) and ``lo`` the last 8, which fit (outside
+    float32's subnormal range)."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.cat([hi, mid, lo], dim=1)
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 for float32 ``a`` (N, m, n) and ``b`` (N, n, p)
+    in the cache's dtype: the product of ``a`` with ``b``'s values.  A
+    bf16 ``b`` is never copied to float32: ``a`` goes in as its three bf16
+    pieces (:func:`_split_bf16`), one product reads ``b`` once, and the
+    pieces' row blocks are summed, the smallest first."""
+    if b.dtype != torch.bfloat16:
+        return torch.bmm(a, b.to(torch.float32))
+    m = a.shape[1]
+    r = _bmm_f32(_split_bf16(a), b)
+    return (r[:, 2 * m:] + r[:, m:2 * m]) + r[:, :m]
+
+
+def cross_attend_cached(q: torch.Tensor, mk: torch.Tensor,
+                        mv: torch.Tensor) -> torch.Tensor:
+    """One query a sequence over a memory's cached keys and values: ``q``
+    (B, 1, H, hd) in float32, already scaled by hd ** -0.5 (the
+    reference's cached paths scale q before the product); ``mk``, ``mv``
+    (B, K, S, hd) as :func:`memory_kv` lays them out.  Returns the float32
+    output (B, 1, H * hd).
+
+    The reference casts the memory to float32 for its einsums, a copy of
+    the whole memory at every step; :func:`_dot_f32` computes the same
+    float32 logits and output from the cache as it is, reading it once a
+    product."""
+    B, _, H, hd = q.shape
+    K, S = mk.shape[1], mk.shape[2]
+    g = H // K
+    logits = _dot_f32(q.reshape(B * K, g, hd),
+                      mk.reshape(B * K, S, hd).transpose(1, 2))
+    pattn = torch.softmax(logits, dim=-1)
+    o = _dot_f32(pattn, mv.reshape(B * K, S, hd))
+    return o.reshape(B, 1, H * hd)

@@ -1,12 +1,14 @@
-"""Carry the JAX package's decoder parameters across to the port.
+"""Carry the JAX package's model parameters across to the port.
 
-:func:`params_from_numpy` takes the JAX ``Decoder`` with every leaf turned
-into a numpy array (``jax.tree.map(np.asarray, params)``) and returns the
-port's :class:`~repro_torch.models.transformer.Decoder`, so that both
-packages compute the same function on the same weights.  The JAX package
-stacks each block parameter along a leading layer axis (the hybrid family
-along two: super-block, then recurrent block); the port keeps one dict per
-layer.
+:func:`params_from_numpy` takes the JAX ``Decoder`` (or, for the encdec
+family, ``EncDec``) with every leaf turned into a numpy array
+(``jax.tree.map(np.asarray, params)``) and returns the port's
+:class:`~repro_torch.models.transformer.Decoder` (or
+:class:`~repro_torch.models.transformer.EncDec`), so that both packages
+compute the same function on the same weights.  The JAX package stacks
+each block parameter along a leading layer axis (the hybrid and vlm
+families along two: super-block or group, then block within it); the port
+keeps one dict per layer.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (
-    Decoder, hybrid_layout, check_family,
+    Decoder, EncDec, check_family, hybrid_layout, vlm_layout,
 )
 
 
@@ -52,24 +54,37 @@ def _layers(stacked, n, device):
     return [_tensors(_index(stacked, i), device) for i in range(n)]
 
 
-def params_from_numpy(cfg, tree, device=None) -> Decoder:
+def params_from_numpy(cfg, tree, device=None):
     """The port's parameters from the JAX package's, as numpy arrays, on
     ``cuda`` unless the caller passes ``device="cpu"``.
 
     ``tree`` has the fields ``embed`` (V, d), ``blocks``, ``tail``,
-    ``final_norm`` (d,) and ``lm_head`` ((d, V), or None when the
-    embeddings are tied), read by attribute or by key.  ``blocks`` holds
-    dicts of arrays with a leading axis of ``cfg.n_layers`` (dense, moe,
-    ssm), or for the hybrid family ``{"recs": ..., "attn": ...}`` with
-    leading axes (n_super, attn_every - 1) and (n_super,); ``tail`` is the
-    hybrid's leftover recurrent blocks (leading axis n_tail) or None.
+    ``cross``, ``vision_proj``, ``final_norm`` (d,) and ``lm_head`` ((d,
+    V), or None when the embeddings are tied), read by attribute or by
+    key.  ``blocks`` holds dicts of arrays with a leading axis of
+    ``cfg.n_layers`` (dense, moe, ssm); for the hybrid family
+    ``{"recs": ..., "attn": ...}`` with leading axes (n_super, attn_every
+    - 1) and (n_super,), and ``tail`` the leftover recurrent blocks
+    (leading axis n_tail) or None; for the vlm family leading axes
+    (groups, cross_every), flattened group-major, with ``cross`` (leading
+    axis groups) and ``vision_proj`` (vision_dim, d).  An encdec ``tree``
+    has the JAX ``EncDec``'s fields (:func:`_encdec_from_numpy`).
     """
     check_family(cfg)
     device = resolve_device(device)
+    if cfg.family == "encdec":
+        return _encdec_from_numpy(cfg, tree, device)
     blocks = _field(tree, "blocks")
     lm_head = _field(tree, "lm_head")
     tail = _field(tree, "tail") if cfg.family == "hybrid" else None
-    if cfg.family == "hybrid":
+    cross = vision_proj = None
+    if cfg.family == "vlm":
+        n_groups, per = vlm_layout(cfg)
+        blocks = [layer for g in range(n_groups)
+                  for layer in _layers(_index(blocks, g), per, device)]
+        cross = _layers(_field(tree, "cross"), n_groups, device)
+        vision_proj = _tensor(_field(tree, "vision_proj"), device)
+    elif cfg.family == "hybrid":
         n_super, n_rec, n_tail = hybrid_layout(cfg)
         blocks = [{"recs": _layers(sb["recs"], n_rec, device),
                    "attn": _tensors(sb["attn"], device)}
@@ -83,4 +98,22 @@ def params_from_numpy(cfg, tree, device=None) -> Decoder:
         final_norm=_tensor(_field(tree, "final_norm"), device),
         lm_head=None if lm_head is None else _tensor(lm_head, device),
         tail=tail,
+        cross=cross,
+        vision_proj=vision_proj,
+    )
+
+
+def _encdec_from_numpy(cfg, tree, device) -> EncDec:
+    """The JAX ``EncDec``'s fields: ``audio_proj`` (audio_dim, d),
+    ``enc_blocks`` (leading axis encoder_layers), ``enc_norm``, ``embed``,
+    ``dec_blocks`` (leading axis n_layers), ``final_norm``, ``lm_head``."""
+    return EncDec(
+        audio_proj=_tensor(_field(tree, "audio_proj"), device),
+        enc_blocks=_layers(_field(tree, "enc_blocks"), cfg.encoder_layers,
+                           device),
+        enc_norm=_tensor(_field(tree, "enc_norm"), device),
+        embed=_tensor(_field(tree, "embed"), device),
+        dec_blocks=_layers(_field(tree, "dec_blocks"), cfg.n_layers, device),
+        final_norm=_tensor(_field(tree, "final_norm"), device),
+        lm_head=_tensor(_field(tree, "lm_head"), device),
     )

@@ -1,11 +1,11 @@
-"""Decoder assembly: the dense, moe, ssm and hybrid families.
+"""Architecture assembly for all six families.
 
-The port of the decoder-only part of :mod:`repro.models.transformer`.
-Where the JAX package runs a ``lax.scan`` over parameters stacked along a
-leading layer axis, the port keeps one parameter dict per layer and loops
-over them; the decode cache is likewise one cache per layer.  ``remat``
-and the sharding constraints have no counterpart on one card
-(:func:`check_family` refuses those fields away from their defaults).
+The port of :mod:`repro.models.transformer`.  Where the JAX package runs a
+``lax.scan`` over parameters stacked along a leading layer axis, the port
+keeps one parameter dict per layer and loops over them; the decode cache
+is likewise one cache per layer.  ``remat`` and the sharding constraints
+have no counterpart on one card (:func:`check_family` refuses those fields
+away from their defaults).
 
 Layer layouts, as in the reference:
 
@@ -15,9 +15,23 @@ Layer layouts, as in the reference:
                 blocks and one local-attention block (window
                 ``cfg.local_window``), then the L mod attn_every leftover
                 RG-LRU blocks (``Decoder.tail``, None when there are none).
+  vlm         : L // cross_every groups of cross_every self blocks, each
+                group followed by one gated cross-attention block over the
+                projected vision embeddings (``Decoder.blocks`` holds the
+                self blocks group-major, ``Decoder.cross`` one block a
+                group).
+  encdec      : an encoder of bidirectional self blocks over the projected
+                audio frames (:class:`EncDec`), then decoder blocks of
+                causal self-attention, cross-attention over the encoder's
+                memory and an MLP.
 
-The ``vlm`` and ``encdec`` families raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Cross-attention is plain PyTorch (``impl="einsum"`` at every cross call
+site, as in the reference, whatever ``cfg.attn_impl`` says).  Its keys and
+values are computed once at prefill and held in the cache head-major
+(:func:`~repro_torch.models.attention.memory_kv`); decode reads them as
+they are (:func:`~repro_torch.models.attention.cross_attend_cached`).
+A vlm cross block's gate is a float32 scalar initialized to 0, so that at
+initialization the block adds nothing.
 """
 
 from __future__ import annotations
@@ -36,24 +50,19 @@ from repro_torch.models.layers import (
     dtype_of, init_mlp, mlp, rms_norm, trunc_normal, zeros,
 )
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
-_UNPORTED = {
-    "vlm": "cross-attention blocks and the vision projection",
-    "encdec": "the audio encoder-decoder",
-}
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def check_family(cfg) -> None:
-    """Raise ``NotImplementedError`` unless the port runs ``cfg.family``,
-    and ``ValueError`` if a field that has no effect in the port
-    (:data:`~repro_torch.models.config.NO_EFFECT`) is not at its default."""
+    """Raise ``NotImplementedError`` unless ``cfg.family`` is one of the
+    families the port runs, and ``ValueError`` if a field that has no
+    effect in the port (:data:`~repro_torch.models.config.NO_EFFECT`) is
+    not at its default."""
     if cfg.family not in PORTED:
-        what = _UNPORTED.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(
-            f"repro_torch: {cfg.name} is family {cfg.family!r}; {what} are "
-            f"not ported yet (ROADMAP.md, queue 1 item 9: the LM "
-            f"substrate's other families); the {', '.join(PORTED)} "
-            f"families run")
+            f"repro_torch: {cfg.name} is family {cfg.family!r}, which is "
+            f"not a family of the model substrate; the "
+            f"{', '.join(PORTED)} families run")
     fields = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     moved = {n: getattr(cfg, n) for n in NO_EFFECT
              if getattr(cfg, n) != fields[n]}
@@ -69,6 +78,13 @@ def hybrid_layout(cfg):
     per = cfg.attn_every
     n_super = cfg.n_layers // per
     return n_super, per - 1, cfg.n_layers - n_super * per
+
+
+def vlm_layout(cfg):
+    """(groups, self blocks in each): each group's self blocks are followed
+    by one cross block; as in the reference, L mod cross_every leftover
+    layers are not built."""
+    return cfg.n_layers // cfg.cross_every, cfg.cross_every
 
 
 # ============================================================= decoder blocks
@@ -123,6 +139,50 @@ def decoder_block_prefill(bp, x, cfg, positions, window=None):
     return x + _ffn(bp, h, cfg), (k, v)
 
 
+# ------------------------------------------------------------- cross blocks
+def init_cross_block(gen: torch.Generator, cfg):
+    return {
+        "norm": zeros((cfg.d_model,), dtype_of(cfg.dtype), gen),
+        "attn": att.init_attn(gen, cfg, cross=True),
+        "gate": zeros((), torch.float32, gen),
+    }
+
+
+def cross_block(bp, x, memory, cfg, return_kv=False):
+    """Gated cross-attention over ``memory`` (full-sequence path);
+    ``tanh(gate)`` is cast to the activations' dtype before the multiply,
+    as in the reference.  With ``return_kv`` also the memory's keys and
+    values as the decode cache holds them."""
+    h = rms_norm(x, bp["norm"], cfg.norm_eps)
+    h, (k, v) = att.multihead_attention(
+        bp["attn"], h, cfg, kv_x=memory, causal=False, use_rope=False,
+        impl="einsum", return_kv=True,
+    )
+    x = x + torch.tanh(bp["gate"]).to(x.dtype) * h
+    if return_kv:
+        return x, att.memory_kv(k, v)
+    return x
+
+
+def _cross_cached(p, h, mem_kv, cfg):
+    """Cross-attention of one decode token over a memory's cached keys and
+    values (projections ``p``): q scaled by hd ** -0.5 in float32 before
+    the products, as the reference's cached paths do (its full-sequence
+    path scales the logits after)."""
+    B = h.shape[0]
+    q = (h @ p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    o = att.cross_attend_cached(q.to(torch.float32) * (cfg.hd ** -0.5),
+                                *mem_kv)
+    return o.to(h.dtype) @ p["wo"]
+
+
+def cross_block_cached(bp, x_t, mem_kv, cfg):
+    """Decode-path gated cross-attention over precomputed memory K/V."""
+    h = rms_norm(x_t, bp["norm"], cfg.norm_eps)
+    o = _cross_cached(bp["attn"], h, mem_kv, cfg)
+    return x_t + torch.tanh(bp["gate"]).to(x_t.dtype) * o
+
+
 # ------------------------------------------------------------ hybrid blocks
 def init_rec_block(gen: torch.Generator, cfg):
     dt = dtype_of(cfg.dtype)
@@ -158,14 +218,16 @@ def ssm_block(bp, x, cfg, cache=None):
 
 # ================================================================== assembly
 class Decoder(NamedTuple):
-    """Decoder-only parameters: the JAX ``Decoder``'s fields that the
-    ported families use (``cross`` and ``vision_proj`` wait for vlm)."""
+    """Decoder-only parameters (dense / moe / ssm / hybrid / vlm): the
+    JAX ``Decoder``'s fields."""
 
     embed: torch.Tensor
     blocks: list        # one parameter dict per layer (hybrid: super-block)
     final_norm: torch.Tensor
     lm_head: Optional[torch.Tensor]   # None if tied
     tail: Optional[list] = None       # hybrid leftover blocks, else None
+    cross: Optional[list] = None      # vlm: one cross block a group
+    vision_proj: Optional[torch.Tensor] = None   # vlm: (vision_dim, d)
 
 
 def init_decoder(gen: torch.Generator, cfg) -> Decoder:
@@ -173,7 +235,10 @@ def init_decoder(gen: torch.Generator, cfg) -> Decoder:
     check_family(cfg)
     dt = dtype_of(cfg.dtype)
     embed = trunc_normal(gen, (cfg.vocab_size, cfg.d_model), 1.0, dt)
-    tail = None
+    tail = cross = vision_proj = None
+    if cfg.family == "encdec":
+        raise ValueError("repro_torch: encdec parameters are an EncDec "
+                         "(init_encdec), not a Decoder")
     if cfg.family == "ssm":
         blocks = [init_ssm_block(gen, cfg) for _ in range(cfg.n_layers)]
     elif cfg.family == "hybrid":
@@ -183,12 +248,20 @@ def init_decoder(gen: torch.Generator, cfg) -> Decoder:
                   for _ in range(n_super)]
         if n_tail:
             tail = [init_rec_block(gen, cfg) for _ in range(n_tail)]
+    elif cfg.family == "vlm":
+        n_groups, per = vlm_layout(cfg)
+        blocks = [init_decoder_block(gen, cfg)
+                  for _ in range(n_groups * per)]
+        cross = [init_cross_block(gen, cfg) for _ in range(n_groups)]
+        vision_proj = trunc_normal(gen, (cfg.vision_dim, cfg.d_model), 1.0,
+                                   dt)
     else:   # dense / moe
         blocks = [init_decoder_block(gen, cfg) for _ in range(cfg.n_layers)]
     final_norm = zeros((cfg.d_model,), dt, gen)
     lm_head = (None if cfg.tie_embeddings else
                trunc_normal(gen, (cfg.d_model, cfg.vocab_size), 1.0, dt))
-    return Decoder(embed, blocks, final_norm, lm_head, tail)
+    return Decoder(embed, blocks, final_norm, lm_head, tail, cross,
+                   vision_proj)
 
 
 def _lm_logits(params: Decoder, x, cfg):
@@ -201,8 +274,26 @@ def _positions(B, S, device):
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-def decoder_forward(params: Decoder, cfg, tokens: torch.Tensor):
-    """Full-sequence forward -> logits (B, S, V)."""
+def _vision_memory(params: Decoder, cfg, vision_embeds):
+    """The vlm's cross-attention memory: the vision embeddings projected."""
+    if vision_embeds is None:
+        raise ValueError(
+            f"repro_torch: {cfg.name} (vlm) needs batch['vision'], "
+            f"(B, {cfg.vision_tokens}, {cfg.vision_dim}) embeddings")
+    return vision_embeds @ params.vision_proj
+
+
+def _groups(params: Decoder, cfg):
+    """(the group's self blocks, its cross block, group index) of a vlm."""
+    _, per = vlm_layout(cfg)
+    for gi, cp in enumerate(params.cross):
+        yield params.blocks[gi * per:(gi + 1) * per], cp, gi
+
+
+def decoder_forward(params: Decoder, cfg, tokens: torch.Tensor,
+                    vision_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence forward -> logits (B, S, V).  ``vision_embeds``
+    (B, vision_tokens, vision_dim): the vlm's stub patch embeddings."""
     check_family(cfg)
     B, S = tokens.shape
     x = params.embed[tokens]
@@ -218,6 +309,12 @@ def decoder_forward(params: Decoder, cfg, tokens: torch.Tensor):
                               window=cfg.local_window)
         for rp in params.tail or ():
             x, _ = rec_block(rp, x, cfg)
+    elif cfg.family == "vlm":
+        memory = _vision_memory(params, cfg, vision_embeds)
+        for blocks, cp, _ in _groups(params, cfg):
+            for bp in blocks:
+                x = decoder_block(bp, x, cfg, positions, cfg.sliding_window)
+            x = cross_block(cp, x, memory, cfg)
     else:   # dense / moe
         for bp in params.blocks:
             x = decoder_block(bp, x, cfg, positions, cfg.sliding_window)
@@ -226,11 +323,14 @@ def decoder_forward(params: Decoder, cfg, tokens: torch.Tensor):
 
 # =========================================================== caches & decode
 class DecodeCache(NamedTuple):
-    """``self_kv`` by family: dense / moe one :class:`KVCache` a layer; ssm
-    one :class:`~repro_torch.models.ssd.SSMCache` a layer; hybrid a dict
-    of ``recs`` (a list of :class:`~repro_torch.models.rglru.LRUCache` a
-    super-block), ``attn`` (one windowed KV ring a super-block) and
-    ``tail`` (LRU caches, or None)."""
+    """``self_kv`` by family: dense / moe / vlm one :class:`KVCache` a
+    (self-attention) layer; ssm one :class:`~repro_torch.models.ssd.
+    SSMCache` a layer; hybrid a dict of ``recs`` (a list of
+    :class:`~repro_torch.models.rglru.LRUCache` a super-block), ``attn``
+    (one windowed KV ring a super-block) and ``tail`` (LRU caches, or
+    None).  ``cross_kv``: the vlm's (k, v) of the projected vision
+    embeddings, one pair a group, (B, K, vision_tokens, hd) each; decode
+    never writes them."""
 
     self_kv: object
     pos: int
@@ -238,11 +338,31 @@ class DecodeCache(NamedTuple):
     # cache over the same tensors: an in-place step moves it past the pos
     # of the cache it consumed
     written: list
+    cross_kv: Optional[list] = None
+
+
+def _check_live(cache) -> None:
+    """Raise unless ``cache``'s tensors still hold its own state."""
+    if cache.written[0] != cache.pos:
+        raise ValueError(
+            f"repro_torch: this cache (pos {cache.pos}) was consumed by an "
+            f"in-place decode step (its tensors hold tokens up to "
+            f"{cache.written[0]}); decode from the cache that step returned")
+
+
+def _next_written(cache, inplace: bool) -> list:
+    """The ``written`` of the cache a decode step returns: the consumed
+    cache's own list moved on (in place), else a fresh one."""
+    if inplace:
+        cache.written[0] = cache.pos + 1
+        return cache.written
+    return [cache.pos + 1]
 
 
 def init_decode_cache(cfg, batch: int, max_len: int,
                       device=None) -> DecodeCache:
     check_family(cfg)
+    cross = None
     if cfg.family == "ssm":
         self_kv = [ssd_mod.init_ssm_cache(cfg, batch, device=device)
                    for _ in range(cfg.n_layers)]
@@ -259,11 +379,20 @@ def init_decode_cache(cfg, batch: int, max_len: int,
                      for _ in range(n_super)],
             "tail": [lru() for _ in range(n_tail)] if n_tail else None,
         }
+    elif cfg.family == "vlm":
+        n_groups, per = vlm_layout(cfg)
+        self_kv = [att.init_kv_cache(cfg, batch, max_len, cfg.sliding_window,
+                                     device=device)
+                   for _ in range(n_groups * per)]
+        shape = (batch, cfg.n_kv_heads, cfg.vision_tokens, cfg.hd)
+        dt = dtype_of(cfg.dtype)
+        cross = [tuple(torch.zeros(shape, dtype=dt, device=device)
+                       for _ in range(2)) for _ in range(n_groups)]
     else:
         self_kv = [att.init_kv_cache(cfg, batch, max_len, cfg.sliding_window,
                                      device=device)
                    for _ in range(cfg.n_layers)]
-    return DecodeCache(self_kv=self_kv, pos=0, written=[0])
+    return DecodeCache(self_kv=self_kv, pos=0, written=[0], cross_kv=cross)
 
 
 def decoder_decode_step(params: Decoder, cfg, token: torch.Tensor,
@@ -275,11 +404,7 @@ def decoder_decode_step(params: Decoder, cfg, token: torch.Tensor,
     its KV tensors and ``cache`` is consumed: decoding from it again
     raises."""
     check_family(cfg)
-    if cache.written[0] != cache.pos:
-        raise ValueError(
-            f"repro_torch: this cache (pos {cache.pos}) was consumed by an "
-            f"in-place decode step (its tensors hold tokens up to "
-            f"{cache.written[0]}); decode from the cache that step returned")
+    _check_live(cache)
     x = params.embed[token][:, None, :]  # (B, 1, d)
     if cfg.family == "ssm":
         kv2 = []
@@ -304,6 +429,16 @@ def decoder_decode_step(params: Decoder, cfg, token: torch.Tensor,
             for rp, c in zip(params.tail, kv["tail"]):
                 x, c = rec_block(rp, x, cfg, c)
                 kv2["tail"].append(c)
+    elif cfg.family == "vlm":
+        kv2 = []
+        _, per = vlm_layout(cfg)
+        for blocks, cp, gi in _groups(params, cfg):
+            for j, bp in enumerate(blocks):
+                x, c = decoder_block_decode(
+                    bp, x, cache.self_kv[gi * per + j], cfg,
+                    window=cfg.sliding_window, inplace=inplace)
+                kv2.append(c)
+            x = cross_block_cached(cp, x, cache.cross_kv[gi], cfg)
     else:
         kv2 = []
         for bp, c in zip(params.blocks, cache.self_kv):
@@ -312,14 +447,13 @@ def decoder_decode_step(params: Decoder, cfg, token: torch.Tensor,
                                         inplace=inplace)
             kv2.append(c)
     logits = _lm_logits(params, x, cfg)[:, 0]
-    if inplace:
-        cache.written[0] = cache.pos + 1
-        return logits, DecodeCache(kv2, cache.pos + 1, cache.written)
-    return logits, DecodeCache(kv2, cache.pos + 1, [cache.pos + 1])
+    return logits, DecodeCache(kv2, cache.pos + 1,
+                               _next_written(cache, inplace), cache.cross_kv)
 
 
 # ==================================================================== prefill
 def decoder_prefill(params: Decoder, cfg, tokens: torch.Tensor,
+                    vision_embeds: Optional[torch.Tensor] = None,
                     max_len: Optional[int] = None):
     """Prefill: forward the prompt, return (last-token logits, DecodeCache)."""
     check_family(cfg)
@@ -327,6 +461,7 @@ def decoder_prefill(params: Decoder, cfg, tokens: torch.Tensor,
     max_len = max_len or S
     x = params.embed[tokens]
     positions = _positions(B, S, tokens.device)
+    cross = None
     # the recurrent layers start from the zero state, as the reference's
     # prefill starts from init_decode_cache
     if cfg.family == "ssm":
@@ -354,6 +489,17 @@ def decoder_prefill(params: Decoder, cfg, tokens: torch.Tensor,
                                                 cfg.local_window))
         if params.tail is not None:
             kv["tail"] = recs(params.tail)
+    elif cfg.family == "vlm":
+        memory = _vision_memory(params, cfg, vision_embeds)
+        window = cfg.sliding_window
+        kv, cross = [], []
+        for blocks, cp, _ in _groups(params, cfg):
+            for bp in blocks:
+                x, (k, v) = decoder_block_prefill(bp, x, cfg, positions,
+                                                  window)
+                kv.append(att.fill_kv_cache(cfg, k, v, max_len, window))
+            x, mem_kv = cross_block(cp, x, memory, cfg, return_kv=True)
+            cross.append(mem_kv)
     else:   # dense / moe
         window = cfg.sliding_window
         kv = []
@@ -361,4 +507,182 @@ def decoder_prefill(params: Decoder, cfg, tokens: torch.Tensor,
             x, (k, v) = decoder_block_prefill(bp, x, cfg, positions, window)
             kv.append(att.fill_kv_cache(cfg, k, v, max_len, window))
     logits = _lm_logits(params, x[:, -1:, :], cfg)[:, 0]
-    return logits, DecodeCache(kv, S, [S])
+    return logits, DecodeCache(kv, S, [S], cross)
+
+
+# ==================================================================== enc-dec
+class EncDec(NamedTuple):
+    """Encoder-decoder parameters (seamless-m4t family; the audio frontend
+    is a stub: precomputed frame embeddings): the JAX ``EncDec``'s
+    fields, one parameter dict a layer."""
+
+    audio_proj: torch.Tensor       # (audio_dim, d)
+    enc_blocks: list
+    enc_norm: torch.Tensor
+    embed: torch.Tensor            # decoder token embeddings
+    dec_blocks: list               # self + cross + mlp
+    final_norm: torch.Tensor
+    lm_head: torch.Tensor
+
+
+def init_enc_block(gen: torch.Generator, cfg):
+    dt = dtype_of(cfg.dtype)
+    return {
+        "attn_norm": zeros((cfg.d_model,), dt, gen),
+        "attn": att.init_attn(gen, cfg),
+        "mlp_norm": zeros((cfg.d_model,), dt, gen),
+        "mlp": init_mlp(gen, cfg),
+    }
+
+
+def init_dec_block(gen: torch.Generator, cfg):
+    dt = dtype_of(cfg.dtype)
+    return {
+        "attn_norm": zeros((cfg.d_model,), dt, gen),
+        "attn": att.init_attn(gen, cfg),
+        "cross_norm": zeros((cfg.d_model,), dt, gen),
+        "cross": att.init_attn(gen, cfg, cross=True),
+        "mlp_norm": zeros((cfg.d_model,), dt, gen),
+        "mlp": init_mlp(gen, cfg),
+    }
+
+
+def init_encdec(gen: torch.Generator, cfg) -> EncDec:
+    """Random parameters drawn from ``gen``, on ``gen``'s device."""
+    check_family(cfg)
+    dt = dtype_of(cfg.dtype)
+    return EncDec(
+        audio_proj=trunc_normal(gen, (cfg.audio_dim, cfg.d_model), 1.0, dt),
+        enc_blocks=[init_enc_block(gen, cfg)
+                    for _ in range(cfg.encoder_layers)],
+        enc_norm=zeros((cfg.d_model,), dt, gen),
+        embed=trunc_normal(gen, (cfg.vocab_size, cfg.d_model), 1.0, dt),
+        dec_blocks=[init_dec_block(gen, cfg) for _ in range(cfg.n_layers)],
+        final_norm=zeros((cfg.d_model,), dt, gen),
+        lm_head=trunc_normal(gen, (cfg.d_model, cfg.vocab_size), 1.0, dt),
+    )
+
+
+def encode_audio(params: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, T_frames, audio_dim) stub embeddings -> memory (B, T, d).
+    Bidirectional self-attention with RoPE, through ``cfg.attn_impl``
+    (under ``"flash"`` the kernel's non-causal mode)."""
+    check_family(cfg)
+    x = frames @ params.audio_proj
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for bp in params.enc_blocks:
+        h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+        x = x + att.multihead_attention(bp["attn"], h, cfg,
+                                        positions=positions, causal=False)
+        h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
+        x = x + mlp(bp["mlp"], h, cfg)
+    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _dec_block(bp, x, memory, cfg, positions):
+    """One encoder-decoder decoder block (full-sequence path): causal
+    self-attention, cross-attention over ``memory``, MLP.  Returns the
+    output, the self-attention's (k, v) and the memory's (k, v)."""
+    h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+    h, self_kv = att.multihead_attention(
+        bp["attn"], h, cfg, positions=positions, causal=True,
+        return_kv=True)
+    x = x + h
+    h = rms_norm(x, bp["cross_norm"], cfg.norm_eps)
+    h, mem_kv = att.multihead_attention(
+        bp["cross"], h, cfg, kv_x=memory, causal=False, use_rope=False,
+        impl="einsum", return_kv=True)
+    x = x + h
+    h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
+    return x + mlp(bp["mlp"], h, cfg), self_kv, mem_kv
+
+
+def encdec_forward(params: EncDec, cfg, frames: torch.Tensor,
+                   tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder logits (B, S, V)."""
+    memory = encode_audio(params, cfg, frames)
+    B, S = tokens.shape
+    x = params.embed[tokens]
+    positions = _positions(B, S, tokens.device)
+    for bp in params.dec_blocks:
+        x, _, _ = _dec_block(bp, x, memory, cfg, positions)
+    return _lm_logits(params, x, cfg)
+
+
+class EncDecCache(NamedTuple):
+    """One :class:`~repro_torch.models.attention.KVCache` a decoder layer
+    (``kv_cache_dtype="int8"`` applies), and the encoder memory's keys and
+    values of each layer's cross-attention, (B, K, T_frames, hd) each
+    (head-major: :func:`~repro_torch.models.attention.memory_kv`); decode
+    never writes them."""
+
+    self_kv: list
+    cross_k: list
+    cross_v: list
+    pos: int
+    written: list      # as DecodeCache.written
+
+
+def encdec_prefill(params: EncDec, cfg, frames: torch.Tensor,
+                   tokens: torch.Tensor, max_len: Optional[int] = None):
+    """Encode the audio and prefill the decoder prompt -> (last-token
+    logits, EncDecCache)."""
+    memory = encode_audio(params, cfg, frames)
+    B, S = tokens.shape
+    max_len = max_len or S
+    x = params.embed[tokens]
+    positions = _positions(B, S, tokens.device)
+    self_kv, cross_k, cross_v = [], [], []
+    for bp in params.dec_blocks:
+        x, (k, v), (mk, mv) = _dec_block(bp, x, memory, cfg, positions)
+        self_kv.append(att.fill_kv_cache(cfg, k, v, max_len, None))
+        mk, mv = att.memory_kv(mk, mv)
+        cross_k.append(mk)
+        cross_v.append(mv)
+    logits = _lm_logits(params, x[:, -1:, :], cfg)[:, 0]
+    return logits, EncDecCache(self_kv, cross_k, cross_v, S, [S])
+
+
+def init_encdec_cache(cfg, batch: int, max_len: int, n_frames: int,
+                      device=None) -> EncDecCache:
+    """An empty cache.  The self caches are those of
+    :func:`~repro_torch.models.attention.init_kv_cache` (with their int8
+    planes and scales under ``kv_cache_dtype="int8"``, as the prefill
+    makes them); the reference's ``init_encdec_cache`` builds its
+    ``KVCache`` without the scale fields and raises ``TypeError``."""
+    check_family(cfg)
+    shape = (batch, cfg.n_kv_heads, n_frames, cfg.hd)
+    dt = dtype_of(cfg.dtype)
+
+    def planes():
+        return [torch.zeros(shape, dtype=dt, device=device)
+                for _ in range(cfg.n_layers)]
+
+    return EncDecCache(
+        self_kv=[att.init_kv_cache(cfg, batch, max_len, None, device=device)
+                 for _ in range(cfg.n_layers)],
+        cross_k=planes(), cross_v=planes(), pos=0, written=[0])
+
+
+def encdec_decode_step(params: EncDec, cfg, token: torch.Tensor,
+                       cache: EncDecCache, inplace: bool = False):
+    """One decode step: token (B,) -> logits (B, V) and the cache with
+    pos + 1; functional unless ``inplace``, as
+    :func:`decoder_decode_step`."""
+    check_family(cfg)
+    _check_live(cache)
+    x = params.embed[token][:, None, :]
+    kv2 = []
+    for bp, c, mk, mv in zip(params.dec_blocks, cache.self_kv,
+                             cache.cross_k, cache.cross_v):
+        h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+        h, c = att.decode_attention(bp["attn"], h, c, cfg, inplace=inplace)
+        x = x + h
+        h = rms_norm(x, bp["cross_norm"], cfg.norm_eps)
+        x = x + _cross_cached(bp["cross"], h, (mk, mv), cfg)
+        h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
+        x = x + mlp(bp["mlp"], h, cfg)
+        kv2.append(c)
+    logits = _lm_logits(params, x, cfg)[:, 0]
+    return logits, EncDecCache(kv2, cache.cross_k, cache.cross_v,
+                               cache.pos + 1, _next_written(cache, inplace))

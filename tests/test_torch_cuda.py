@@ -630,7 +630,9 @@ def test_flash_attention_general_kernel_matches_plain(cuda, dtype, case):
 
 # The sm90 kernel's cases: D 64 and 128 (and 256); groups 1, 4 and 8; Sq
 # and Skv off the 128-row query and key tiles; Sq < Skv end-aligned; a
-# window of 48 inside one key tile; non-causal with Sq > Skv; one query.
+# window of 48 inside one key tile; non-causal with Sq > Skv; one query;
+# non-causal MHA at D 64 on whole query and key tiles (the encoder's mode,
+# every tile unmasked).
 SM90_CASES = [
     (2, 4, 4, 200, 200, 64, True, None),
     (1, 8, 2, 333, 333, 128, True, None),
@@ -645,6 +647,7 @@ SM90_CASES = [
     (1, 16, 1, 300, 300, 256, True, 40),
     (2, 16, 1, 530, 530, 256, True, 200),
     (1, 32, 8, 700, 700, 128, True, 256),
+    (2, 16, 16, 384, 512, 64, False, None),
 ]
 
 
@@ -1468,26 +1471,42 @@ def _to_device(tree, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "recurrentgemma-9b",
-                                  "mamba2-780m"])
+                                  "mamba2-780m", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
 def test_lm_family_on_card_matches_cpu(cuda, arch):
     """The reduced config (f32) prefilled and decoded 3 steps on the card
-    against the CPU path on the same weights and tokens: the card's
-    attention is the flash kernel (one launch an attention layer of the
-    prefill), the CPU's its plain version.  Both are f32 with TF32 off;
-    they differ in the order of f32 sums, 1e-4 of the logits' scale."""
+    against the CPU path on the same weights, tokens and vision / frame
+    embeddings (the vlm's cross gates opened to 0.5): the card's attention
+    is the flash kernel (one launch a self-attention layer of the prefill,
+    the encoder's included, non-causal), the CPU's its plain version.  Both
+    are f32 with TF32 off; they differ in the order of f32 sums, 1e-4 of
+    the logits' scale."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import api
 
     cfg = get_reduced(arch).replace(attn_impl="flash")
     n_attn = {"moe": cfg.n_layers, "ssm": 0,
-              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+              "vlm": cfg.n_layers // max(cfg.cross_every, 1)
+              * cfg.cross_every,
+              "encdec": cfg.encoder_layers + cfg.n_layers}[cfg.family]
     params = api.init_params(cfg, 0, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 80),
-                         generator=torch.Generator().manual_seed(0))
-    lc, cc = api.prefill(cfg, params, {"tokens": toks}, max_len=88)
+    if cfg.family == "vlm":
+        params = params._replace(cross=[dict(cp, gate=torch.tensor(0.5))
+                                        for cp in params.cross])
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 80), generator=gen)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn(
+            (2, cfg.vision_tokens, cfg.vision_dim), generator=gen)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (2, cfg.audio_frames, cfg.audio_dim), generator=gen)
+    lc, cc = api.prefill(cfg, params, batch, max_len=88)
     n0 = fa_ops.launches
     lg, cg = api.prefill(cfg, _to_device(params, cuda),
-                         {"tokens": toks.to(cuda)}, max_len=88)
+                         _to_device(batch, cuda), max_len=88)
     torch.cuda.synchronize()
     assert fa_ops.launches - n0 == n_attn
     pg = _to_device(params, cuda)
@@ -1499,3 +1518,34 @@ def test_lm_family_on_card_matches_cpu(cuda, arch):
         tok = lc.argmax(-1).to(torch.int32)
         lc, cc = api.decode_step(cfg, params, tok, cc)
         lg, cg = api.decode_step(cfg, pg, tok.to(cuda), cg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cached_cross_decode_on_bf16_is_the_f32_route(cuda, hd):
+    """cross_attend_cached on a bf16 memory on the card (the query and the
+    probabilities as three bf16 pieces, cuBLAS products with float32
+    outputs, the memory never copied) against the same call on the memory
+    cast to float32 (plain f32 products), elementwise: both sum exact
+    products in float32 in other orders.  A logit's hd products are off
+    by ~eps sqrt(hd) of max_s |q| . |k_s|, which moves the output by that
+    much of attention(q, k, |v|); the output's S products by ~eps sqrt(S)
+    of it.  Twice the two."""
+    from repro_torch.models.attention import cross_attend_cached
+
+    gen = torch.Generator().manual_seed(hd)
+    B, H, K, S = 8, 16, 16, 4096
+    q = (torch.randn((B, 1, H, hd), generator=gen) * hd ** -0.5).to(cuda)
+    mk, mv = (torch.randn((B, K, S, hd), generator=gen).to(
+        torch.bfloat16).to(cuda) for _ in range(2))
+    k32, v32 = mk.float(), mv.float()
+    out = cross_attend_cached(q, mk, mv)
+    ref = cross_attend_cached(q, k32, v32)
+    lmax = torch.bmm(q.abs().reshape(B * K, H // K, hd),
+                     k32.abs().reshape(B * K, S, hd).transpose(1, 2)
+                     ).amax(-1).reshape(B, 1, H, 1)
+    a = cross_attend_cached(q, k32, v32.abs()).reshape(B, 1, H, hd)
+    tol = (2 * torch.finfo(torch.float32).eps * (S ** 0.5 + hd ** 0.5 * lmax)
+           * a).reshape(B, 1, H * hd)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert bool(((out - ref).abs() <= tol).all())

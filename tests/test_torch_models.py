@@ -155,19 +155,37 @@ def test_int8_kv_cache_matches_jax(impl):
 
 @pytest.mark.parametrize("arch", [a.replace("_", "-") for a in ARCHS])
 def test_unported_families_name_item_9(arch):
-    """The dense, moe, ssm and hybrid archs build on the CPU; vlm and
-    encdec raise, naming the ROADMAP item that ports them."""
+    """Every arch builds on the CPU, the vlm and encdec families (the last
+    of ROADMAP queue 1 item 9's families) included, and its batch carries
+    the family's stub embeddings in the model's dtype."""
     cfg = get_reduced(arch)
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        params = api.init_params(cfg, 0, device="cpu")
-        assert params.embed.shape == (cfg.vocab_size, cfg.d_model)
-        assert api.make_batch(cfg, 0, 1, 4, device="cpu")["tokens"].shape \
-            == (1, 4)
-        return
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        api.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        api.make_batch(cfg, 0, 1, 4, device="cpu")
+    params = api.init_params(cfg, 0, device="cpu")
+    assert params.embed.shape == (cfg.vocab_size, cfg.d_model)
+    batch = api.make_batch(cfg, 0, 1, 4, device="cpu")
+    assert batch["tokens"].shape == (1, 4)
+    extra = {"vlm": ("vision", (1, cfg.vision_tokens, cfg.vision_dim)),
+             "encdec": ("frames", (1, cfg.audio_frames, cfg.audio_dim))}
+    assert set(batch) == {"tokens", "labels"} | (
+        {extra[cfg.family][0]} if cfg.family in extra else set())
+    if cfg.family in extra:
+        name, shape = extra[cfg.family]
+        assert tuple(batch[name].shape) == shape
+        assert batch[name].dtype == layers.dtype_of(cfg.dtype)
+    if cfg.family == "vlm":
+        assert len(params.cross) == cfg.n_layers // cfg.cross_every
+        assert params.vision_proj.shape == (cfg.vision_dim, cfg.d_model)
+    if cfg.family == "encdec":
+        assert len(params.enc_blocks) == cfg.encoder_layers
+        assert len(params.dec_blocks) == cfg.n_layers
+
+
+def test_unknown_family_raises():
+    cfg = get_reduced("granite-3-8b").replace(family="diffusion")
+    for call in (lambda: api.init_params(cfg, 0, device="cpu"),
+                 lambda: api.make_batch(cfg, 0, 1, 4, device="cpu"),
+                 lambda: api.init_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match="diffusion"):
+            call()
 
 
 def test_init_params_is_seeded_and_shaped():

@@ -553,7 +553,10 @@ def test_worker_death_fails_futures_and_restarts(artifact, monkeypatch):
     never strands them — and the supervised worker comes back."""
     monkeypatch.setenv("REPRO_FAULT_SERVE_KILL_WORKER", "1")
     monkeypatch.delenv("REPRO_FAULT_ONCE", raising=False)
-    with _engine({"a": artifact}, max_batch=8, max_wait_ms=1.0,
+    # a wait long enough that the three requests make up the killed batch
+    # even on a loaded host (at 1 ms the worker could flush the first one
+    # alone, die, and refuse the next submits)
+    with _engine({"a": artifact}, max_batch=8, max_wait_ms=100.0,
                  restart=RestartPolicy(backoff_base_s=0.01)) as eng:
         basis, eim = eng.router.get("a")
         F = _requests(basis, 3)

@@ -8,7 +8,11 @@ Initializes one of ``chip_smoke.py``'s serving cells on the card (bf16,
 (granite-3-8b, 4 prompts of 2048 tokens, 32 new tokens) or one of its
 ``FAMILY_CELLS`` (``serve_moe``: mixtral-8x7b at 16 layers, 2 x 6,144;
 ``serve_hybrid``: recurrentgemma-9b, 4 x 4,096; ``serve_ssm``:
-mamba2-780m, 4 x 4,096).  It warms the cell with one
+mamba2-780m, 4 x 4,096; ``serve_vlm``: llama-3.2-vision-11b, 4 x 2,048
+with 1,600 vision tokens, its cross gates opened as the smoke opens them;
+``serve_encdec``: seamless-m4t-medium, 8 x 4,096 audio frames with
+256-token prompts, the encoder traced with the prefill).  It warms the
+cell with one
 ``ServeEngine.generate``, then traces one prefill and ``--decode-steps``
 decode steps under ``torch.profiler``.  Prints one JSON line per traced
 part: its wall time, the device busy share (union of kernel intervals over
@@ -61,6 +65,8 @@ def main() -> None:
     cfg = get_config(arch).replace(attn_impl="flash", **over)
     max_len = prompt + gen
     params = api.init_params(cfg, cs.SEED, device=dev)
+    if cfg.family == "vlm":
+        params = cs.open_cross_gates(params, dev)
     batch = api.make_batch(cfg, cs.SEED, n_batch, prompt, device=dev)
     ServeEngine(cfg, params, max_len=max_len).generate(batch, gen)
 
