@@ -11,8 +11,9 @@ builds up to the paper's M = 3,276,800 — then the LM serving paths
 (granite-3-8b, mixtral-8x7b at 16 of its 32 layers, recurrentgemma-9b,
 mamba2-780m, llama-3.2-vision-11b and seamless-m4t-medium at full width,
 their prefill self-attention in the flash kernel, the encoder's
-bidirectional), and holds each hand-written kernel against its plain
-PyTorch version.  Phases, each one JSON line:
+bidirectional), then trains stablelm-3b at full width, and holds each
+hand-written kernel against its plain PyTorch version.  Phases, each one
+JSON line:
 
   env        torch / CUDA versions and the card
   build      seconds to build the CUDA kernels (nvcc, at first use)
@@ -215,6 +216,24 @@ PyTorch version.  Phases, each one JSON line:
              decode bound also with the caches read (the cross K/V
              included)
 
+  train      the trainer (no kernel of its own; attention by einsum), in
+             a child process of this script (``--train``), the one
+             that sets CUBLAS_WORKSPACE_CONFIG for the deterministic step:
+             (a) stablelm-3b whole (2.795 B parameters, bf16, remat on,
+             attn_impl "auto": einsum at 2,048 keys), a global batch of 8 x
+             2,048 tokens in 2 microbatches, 6 steps of make_train_step on
+             SyntheticLMData; launches counted from 0 just before them, no
+             flash launch; the loss, grad_norm and every parameter finite,
+             every parameter leaf moved; step ms (steps 2-6), tokens/s,
+             peak and state GB, the model FLOPs of a step (6 P T for the
+             GEMMs plus the einsum attention's) and their share of the bf16
+             dense peak; (b) python -m repro_torch.launch.train on the card
+             (reduced stablelm-3b, 30 steps, checkpoints every 10):
+             uninterrupted, then --crash-at 17 and resumed: the final
+             checkpoints bitwise equal; (c) reduced stablelm-3b in float32,
+             the same parameters and batches, 5 steps on the card and on
+             the CPU: the losses within 1e-4 relative
+
 Then a line listing every ported kernel, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
 script exits non-zero and prints no result.  It needs a CUDA device and
@@ -317,6 +336,23 @@ FAMILY_CELLS = (
     ("serve_vlm", "llama-3.2-vision-11b", {}, 4, 2048, 32),
     ("serve_encdec", "seamless-m4t-medium", {}, 8, 256, 32),
 )
+# The training cell: stablelm-3b whole (the largest model of the repo
+# whose bf16 parameters, bf16 gradients, float32 moments and float32
+# microbatch sums, ~44.7 GB, fit one 80 GB card), a global batch of 8 x
+# 2,048 tokens in 2 microbatches, 6 steps (the first not timed); if it
+# stops fitting, the microbatch shrinks here, never the width.  The
+# card-against-CPU check: reduced stablelm-3b in float32, 5 steps of 4 x
+# 32 tokens; the restart check: the launcher's reduced run of the
+# reference's fault-tolerance test (30 steps, checkpoints every 10, a
+# crash after step 17).
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
+TRAIN_MICRO = 2
+TRAIN_CMP_STEPS, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 5, 4, 32
+TRAIN_CMP_RTOL = 1e-4
+TRAIN_LAUNCH_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "30",
+                     "--seq", "32", "--batch", "4", "--ckpt-every", "10",
+                     "--log-every", "30", "--device", "cuda"]
 # (B, Hq, Hkv, Sq, Skv, D, causal, window) of the small flash checks:
 # groups 1, 4 and 8; ragged S; a window of 48 against key tiles of 64; Sq <
 # Skv end-aligned; non-causal, with Sq > Skv too; D 16 to 256; one query.
@@ -3426,6 +3462,227 @@ ROUTED = ("greedy_update", "imgs_project", "imgs_panel", "flash_attention",
           "roq_apply", "taylorf2_tile")
 
 
+# ------------------------------------------------------------ training ----
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Floating-point operations of one train step on ``batch`` x ``seq``
+    tokens.  ``model``: 6 P T for the GEMMs (P without the embedding
+    table, which is a lookup) plus the einsum attention's two products,
+    2 B H S^2 hd each a layer forward, three times that with the
+    backward; the einsum computes every (query, key) pair, the masked half
+    too, in float32.  ``executed``: with remat the forward runs twice
+    (8 P T, four times the attention's forward)."""
+    T = batch * seq
+    p_gemm = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    attn_fwd = cfg.n_layers * 4 * batch * cfg.n_heads * seq * seq * cfg.hd
+    remat = 2 if cfg.remat else 1
+    return {"gemm": 6 * p_gemm * T, "attention": 3 * attn_fwd,
+            "model": 6 * p_gemm * T + 3 * attn_fwd,
+            "executed": (4 + 2 * remat) * p_gemm * T
+            + (2 + remat) * attn_fwd}
+
+
+def _tree_gb(tree) -> float:
+    from repro_torch.tree import leaves
+    return sum(t.nbytes for t in leaves(tree)) / 1e9
+
+
+def train_full_width(dev, smi, reset_counts, read_counts):
+    """(a): stablelm-3b whole through make_train_step; returns the
+    launches of the 6 steps, counted from 0 just before them, and the
+    phase's fields."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.tree import leaves
+    from repro_torch.training import make_train_step, train_state_init
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.remat and cfg.attn_impl == "auto"
+          and TRAIN_SEQ <= 8192,
+          f"train: {TRAIN_ARCH} is not bf16 / remat / einsum attention")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_state_init(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = _tree_gb(state)
+    before = [p.to("cpu", copy=True) for p in leaves(state.params)]
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                           seed=SEED, device=dev)
+    step = make_train_step(cfg, n_microbatches=TRAIN_MICRO, base_lr=3e-4,
+                           warmup=2, total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["flash_attention"] == 0,
+          f"train: {launches['flash_attention']} flash launches: training "
+          f"attends by einsum")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              for m in metrics), f"train: loss or grad_norm not finite: "
+          f"{metrics}")
+    moved = 0
+    for p, b in zip(leaves(state.params), before):
+        check(bool(torch.isfinite(p).all()), "train: a parameter is not "
+              "finite")
+        moved += not torch.equal(p, b.to(dev))
+    n_leaves = len(before)
+    check(moved == n_leaves, f"train: {n_leaves - moved} of {n_leaves} "
+          f"parameter leaves did not move")
+    check(int(state.step) == TRAIN_STEPS, f"train: step {int(state.step)}")
+    del before
+    step_ms = float(np.mean(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fl = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    fields = dict(
+        arch=TRAIN_ARCH, params_b=cfg.param_count() / 1e9, dtype=cfg.dtype,
+        remat=cfg.remat, attn_impl=cfg.attn_impl, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, steps=TRAIN_STEPS,
+        init_s=init_s, step_ms=times, step_ms_mean=step_ms,
+        step_ms_min=min(times[1:]), tokens_per_s=tokens / step_ms * 1e3,
+        peak_mem_gb=peak_gb, state_gb=state_gb,
+        model_flops=fl["model"], gemm_flops=fl["gemm"],
+        attention_flops=fl["attention"], executed_flops=fl["executed"],
+        model_tflops_per_s=fl["model"] / step_ms / 1e9,
+        bf16_peak_share=fl["model"] / (step_ms / 1e3) / BF16_FLOPS,
+        losses=[m["loss"] for m in metrics],
+        grad_norms=[m["grad_norm"] for m in metrics],
+        lrs=[m["lr"] for m in metrics], leaves_moved=moved,
+        launches=launches, card=smi)
+    del state, step, data
+    torch.cuda.empty_cache()
+    return launches, fields
+
+
+def train_restart(dev) -> dict:
+    """(b): the launcher on the card uninterrupted, then crashed after step
+    17 and resumed; the final checkpoints must be bitwise equal."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+
+    def run(ckpt, *extra):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *TRAIN_LAUNCH_ARGS, "--ckpt-dir", ckpt, *extra],
+            env=env, capture_output=True, text=True, timeout=300)
+        return p, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, ft = os.path.join(tmp, "ref"), os.path.join(tmp, "ft")
+        p, ref_s = run(ref)
+        check(p.returncode == 0, f"train restart: the uninterrupted run "
+              f"failed: {p.stderr[-2000:]}")
+        p, crash_s = run(ft, "--crash-at", "17")
+        check(p.returncode == 42, f"train restart: the crash run exited "
+              f"{p.returncode}: {p.stderr[-2000:]}")
+        p, resume_s = run(ft)
+        check(p.returncode == 0, f"train restart: the resumed run failed: "
+              f"{p.stderr[-2000:]}")
+        restored = [ln for ln in p.stdout.splitlines()
+                    if ln.startswith("restored")]
+        last_ref, last_ft = sorted(os.listdir(ref))[-1], sorted(
+            os.listdir(ft))[-1]
+        check(last_ref == last_ft == "step_00000030",
+              f"train restart: final steps {last_ref} / {last_ft}")
+        names = sorted(os.listdir(os.path.join(ref, last_ref)))
+        check(names == sorted(os.listdir(os.path.join(ft, last_ft))),
+              "train restart: the final checkpoints hold other leaves")
+        differ = [n for n in names if open(os.path.join(ref, last_ref, n),
+                                           "rb").read()
+                  != open(os.path.join(ft, last_ft, n), "rb").read()]
+        check(not differ, f"train restart: {differ} differ after the "
+              f"crash and resume")
+    return {"restart_files": len(names), "restart_bitwise": True,
+            "restart_restored": restored, "restart_run_s": [
+                ref_s, crash_s, resume_s]}
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """(c): reduced stablelm-3b in float32 from the same parameters and
+    batches, 5 steps on the card and on the CPU: losses within
+    TRAIN_CMP_RTOL.  TF32 is off (repro_torch.device), so both sum float32
+    products in float32 and differ in order only."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.tree import leaves
+    from repro_torch.training import make_train_step, train_state_init
+    from repro_torch.training.trainer import state_to
+
+    cfg = get_reduced(TRAIN_ARCH)
+    check(cfg.dtype == "float32", f"train: reduced {TRAIN_ARCH} not f32")
+    cpu_state = train_state_init(cfg, SEED, device="cpu")
+    card_state = state_to(cpu_state, dev)
+    out = {}
+    for name, state, d in (("cpu", cpu_state, "cpu"),
+                           ("card", card_state, dev)):
+        data = SyntheticLMData(cfg.vocab_size, TRAIN_CMP_SEQ,
+                               TRAIN_CMP_BATCH, seed=SEED, device=d)
+        step = make_train_step(cfg, base_lr=1e-3, warmup=0,
+                               total_steps=TRAIN_CMP_STEPS)
+        losses = []
+        for i in range(TRAIN_CMP_STEPS):
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["loss"]))
+        out[name] = (losses, state)
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["card"][0],
+                                               out["cpu"][0])]
+    check(max(rel) <= TRAIN_CMP_RTOL,
+          f"train: card losses {out['card'][0]} against the CPU's "
+          f"{out['cpu'][0]}: {max(rel)} > {TRAIN_CMP_RTOL}")
+    pdiff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        leaves(out["card"][1].params), leaves(out["cpu"][1].params)))
+    return {"cmp_steps": TRAIN_CMP_STEPS, "cmp_losses_card": out["card"][0],
+            "cmp_losses_cpu": out["cpu"][0], "cmp_loss_max_rel": max(rel),
+            "cmp_loss_rtol": TRAIN_CMP_RTOL, "cmp_param_max_abs_diff": pdiff}
+
+
+def train_main(out: str) -> None:
+    """The child process of the train phase: (a), (b) and (c) (see the
+    module docstring); writes (a)'s launches as JSON to ``out``.  cuBLAS's
+    reproducible workspace is fixed here, before the process's first
+    cuBLAS call, so that it reaches no other phase."""
+    from repro_torch.training.trainer import CUBLAS_WORKSPACE
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    launches, fields = train_full_width(dev, smi, reset_counts, read_counts)
+    fields.update(train_restart(dev))
+    fields.update(train_card_vs_cpu(dev))
+    emit("train", phase_s=time.perf_counter() - t0, **fields)
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def train_phase() -> dict:
+    """Runs :func:`train_main` in a child process on the same card, with
+    this process's cached blocks released first; returns (a)'s
+    launches."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "launches.json")
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--train", out], timeout=900)
+        check(p.returncode == 0, f"train: the phase's process exited "
+              f"{p.returncode}")
+        with open(out) as f:
+            return json.load(f)
+
+
 def counters() -> dict:
     """Each kernel's wrapper module (its ``launches`` counters)."""
     from repro_torch.kernels.block_sweep import ops as bs_ops
@@ -4042,6 +4299,10 @@ def main() -> None:
             batch, prompt, gen, dev, smi, reset_counts, read_counts)
         for phase, arch, over, batch, prompt, gen in FAMILY_CELLS}
 
+    # --- the trainer: stablelm-3b whole on the card, the launcher's crash
+    # and resume, the card against the CPU
+    train_launches = train_phase()
+
     # one entry per kernel; a wrapper that routes between two kernels has
     # an entry for each, which counts its own route's launches
     kernels = []
@@ -4127,7 +4388,8 @@ def main() -> None:
                             "batched_shared": shared_launches[key],
                             "batched_stacked": stacked_launches[key],
                             "distributed": dist_launches[key],
-                            "distributed_blocked": dist_blk_launches[key]},
+                            "distributed_blocked": dist_blk_launches[key],
+                            "train": train_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
@@ -4147,4 +4409,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--train"]:
+        train_main(sys.argv[2])
+    else:
+        main()

@@ -1,9 +1,10 @@
 from repro_torch.checkpoint.io import (
-    latest_step, list_steps, load_checkpoint_raw, load_manifest, prune_steps,
-    save_checkpoint,
+    AsyncCheckpointer, latest_step, list_steps, load_checkpoint_raw,
+    load_manifest, prune_steps, restore_checkpoint, save_checkpoint,
 )
 
 __all__ = [
-    "save_checkpoint", "load_checkpoint_raw", "latest_step", "list_steps",
-    "load_manifest", "prune_steps",
+    "save_checkpoint", "restore_checkpoint", "load_checkpoint_raw",
+    "latest_step", "list_steps", "load_manifest", "prune_steps",
+    "AsyncCheckpointer",
 ]

@@ -4,11 +4,21 @@ Layout:  <dir>/step_<N>/
            manifest.json       — leaf names, shapes, dtypes, crc32s, meta
            <leaf-name>.npy     — one array per leaf
 
-The format is the one :mod:`repro.checkpoint.io` writes, byte for byte in
-the leaves, so a step saved by either package loads in the other.  A tree
-is a (possibly nested) dict of arrays; leaves are flattened in sorted key
-order and nested keys join with ``__``, as JAX's pytree flattening names
-them.  Torch tensors are copied to host numpy.
+The layout is the one :mod:`repro.checkpoint.io` writes.  A dict tree of
+float32 or integer leaves, such as the GW states, is the same bytes in
+both packages, and a step saved by either loads in the other.  Training
+checkpoints are each package's own: the port stores bfloat16 leaves as
+their bits and names per-layer leaves (``params__blocks__1__...``) where
+the reference stacks the layers into one leaf.  A tree
+is any tree of :mod:`repro_torch.tree` (nested dicts, lists, NamedTuples
+such as the training state); leaves are flattened in its order (dict keys
+sorted, NamedTuple fields in order) and the path's keys join with ``__``,
+as JAX's pytree flattening names them.  Torch tensors are copied to host
+numpy; a bfloat16 tensor (numpy has no such type of its own) is stored as
+its raw 16-bit patterns, uint16 on disk, with ``"bfloat16"`` as its
+manifest dtype and the crc over those bits.  :func:`restore_checkpoint`
+rebuilds a target tree's structure on the target's devices, bit for bit;
+:class:`AsyncCheckpointer` writes on a background thread.
 
 Writes go to ``step_<N>.tmp`` and are atomically renamed, so a crash during
 save never corrupts the newest complete step.  The reference's post-save
@@ -22,12 +32,15 @@ import json
 import os
 import re
 import shutil
+import threading
 import time
 import zlib
 from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.tree import flatten_with_path, unflatten
 
 
 def _fault_once(kind: str) -> bool:
@@ -104,23 +117,32 @@ def _gc_orphan_tmps(directory: str, min_age_s: float = 0.0) -> None:
             pass
 
 
-def _flatten(tree: Any, prefix: str = ""):
-    """(name, leaf) pairs in sorted key order, nested keys joined by __."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            name = f"{prefix}__{key}" if prefix else str(key)
-            yield from _flatten(tree[key], name)
-    else:
-        yield (prefix or "leaf"), tree
+def _flatten(tree: Any):
+    """(name, leaf) pairs in tree order, the path's keys joined by __."""
+    for path, leaf in flatten_with_path(tree):
+        yield ("__".join(map(str, path)) if path else "leaf"), leaf
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """(host array, manifest dtype); bfloat16 as its uint16 bits."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
-def save_checkpoint(tree: dict, directory: str, step: int,
+def _host_copy(leaf):
+    """A host copy of a leaf that later writes to ``leaf`` cannot reach."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf, copy=True)
+
+
+def save_checkpoint(tree: Any, directory: str, step: int,
                     meta: Optional[dict] = None) -> str:
     """Atomic synchronous save; returns the final directory.
 
@@ -140,13 +162,13 @@ def save_checkpoint(tree: dict, directory: str, step: int,
     if meta:
         manifest["meta"] = dict(meta)
     for name, leaf in _flatten(tree):
-        arr = _to_numpy(leaf)
+        arr, dtype = _to_numpy(leaf)
         np.save(os.path.join(tmp, name + ".npy"), arr)
         manifest["leaves"].append(
             {
                 "name": name,
                 "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": dtype,
                 "crc32": zlib.crc32(arr.tobytes()),
             }
         )
@@ -244,3 +266,100 @@ def load_checkpoint_raw(directory: str, step: Optional[int] = None,
     raise IOError(
         f"no intact checkpoint in {directory}; tried steps "
         f"{list(reversed(steps))}: " + "; ".join(errors))
+
+
+def _leaf_like(arr: np.ndarray, target, name: str):
+    """``arr`` as a leaf of ``target``'s type, dtype, shape and device
+    (a bfloat16 target takes the stored 16-bit patterns)."""
+    if not isinstance(target, torch.Tensor):
+        return arr
+    if tuple(arr.shape) != tuple(target.shape):
+        raise ValueError(f"checkpoint leaf {name} has shape "
+                         f"{tuple(arr.shape)}, the target "
+                         f"{tuple(target.shape)}")
+    if target.dtype == torch.bfloat16:
+        if arr.dtype != np.uint16:
+            raise ValueError(f"checkpoint leaf {name} is {arr.dtype}, not "
+                             f"bfloat16 bits")
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))   # 0-d stays 0-d
+        if t.dtype != target.dtype:
+            held = ("bfloat16 bits (uint16 on disk)"
+                    if arr.dtype == np.uint16 else str(arr.dtype))
+            raise ValueError(f"checkpoint leaf {name} holds {held}, the "
+                             f"target is {target.dtype}")
+    return t.to(target.device)
+
+
+def restore_checkpoint(target: Any, directory: str,
+                       step: Optional[int] = None) -> Any:
+    """Load a step into the structure of ``target``: each leaf with the
+    target leaf's dtype, shape and device, bit for bit.  ``step=None``
+    takes the newest intact step (:func:`load_checkpoint_raw`)."""
+    named = list(_flatten(target))
+    by_name = load_checkpoint_raw(directory, step,
+                                  names={n for n, _ in named})
+    out = []
+    for name, leaf in named:
+        if name not in by_name:
+            raise KeyError(f"checkpoint missing leaf {name}")
+        out.append(_leaf_like(by_name[name], leaf, name))
+    return unflatten(target, out)
+
+
+class AsyncCheckpointer:
+    """One-slot async writer: :meth:`save` enqueues, the latest snapshot
+    wins."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        self._lock = threading.Lock()
+        self._pending = None
+        self._thread = None
+        self._error = None
+        self.last_saved: Optional[int] = None
+
+    def save(self, tree: Any, step: int):
+        """Snapshot ``tree`` to host memory now (a step that then updates
+        its tensors in place cannot reach the snapshot) and write it on
+        the background thread."""
+        host = unflatten(tree, [_host_copy(x) for _, x in _flatten(tree)])
+        with self._lock:
+            self._pending = (host, step)
+            # the writer clears _thread under the lock as it finds nothing
+            # pending, so a save never lands on a writer about to return
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._drain,
+                                                daemon=True)
+                self._thread.start()
+
+    def _drain(self):
+        try:
+            while True:
+                with self._lock:
+                    if self._pending is None:
+                        self._thread = None
+                        return
+                    tree, step = self._pending
+                    self._pending = None
+                save_checkpoint(tree, self.directory, step)
+                self.last_saved = step
+        except BaseException as e:
+            with self._lock:
+                self._thread = None
+                self._error = e
+            raise
+
+    def wait(self):
+        """Block until every snapshot saved so far is written; a write
+        that failed raises here."""
+        while True:
+            with self._lock:
+                t = self._thread
+                err, self._error = self._error, None
+            if err is not None:
+                raise err
+            if t is None:
+                return
+            t.join()

@@ -1,6 +1,8 @@
-"""Snapshot sources for the port's drivers, and the banded workload."""
+"""Snapshot sources for the port's drivers, the banded workload, and the
+step-keyed token pipelines of the trainer."""
 
 from repro_torch.data.bands import BandSplit, band_split
+from repro_torch.data.pipeline import FileLMData, SyntheticLMData
 from repro_torch.data.providers import (
     ArrayProvider,
     FaultPlan,
@@ -18,5 +20,5 @@ __all__ = [
     "SnapshotProvider", "ArrayProvider", "MemmapProvider",
     "WaveformProvider", "FaultPlan", "FaultyProvider", "as_provider",
     "materialize_source", "write_snapshot_npy", "create_snapshot_npy",
-    "BandSplit", "band_split",
+    "BandSplit", "band_split", "SyntheticLMData", "FileLMData",
 ]

@@ -17,6 +17,10 @@ and ``launches_general`` count them by route, ``launches_noncausal`` those
 of either route without the causal mask (an encoder's bidirectional
 attention).
 
+Neither route has a backward pass: under grad mode, with q, k or v
+requiring grad, both raise (as the reference's kernel does under
+``jax.grad``), on the CPU too.
+
 The kernel masks ragged sequence ends itself (no padding, no fallback) and
 reads q, k, v through their strides, so the transposed (B, S, H, D)
 activations of :func:`repro_torch.models.attention.multihead_attention`
@@ -122,8 +126,24 @@ def _flash_attention_general(q, k, v, causal=True, window=None,
     return _flash(q, k, v, causal, window, sm_scale, general=True)
 
 
+def _check_no_grad(q, k, v) -> None:
+    """Raise while gradients are taken through q, k or v: the kernel has no
+    backward pass (nor has the reference's, whose ``jax.grad`` raises), and
+    its output would carry no gradient to the projections, on the card with
+    no error.  Training attends by einsum or chunks (``attn_impl="auto"``);
+    a flash backward is ``ROADMAP.md`` queue 2 entry 5."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward pass (ROADMAP.md queue 2 "
+            "entry 5): call it under torch.no_grad() or on tensors that do "
+            "not require grad, or train with attn_impl='auto', 'einsum' or "
+            "'chunked'")
+
+
 def _flash(q, k, v, causal, window, sm_scale, general):
     global launches, launches_sm90, launches_general, launches_noncausal
+    _check_no_grad(q, k, v)
     _check_shapes(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,

@@ -1,8 +1,9 @@
-"""Family-dispatched public model API: init / forward / prefill / decode.
+"""Family-dispatched public model API: init / forward / loss / prefill /
+decode.
 
-The port of :mod:`repro.models.api` for every family (``loss_fn`` waits
-with training); ``encdec`` dispatches to the encoder-decoder, the rest to
-the decoder.  Every function runs on the device of the parameters;
+The port of :mod:`repro.models.api` for every family; ``encdec``
+dispatches to the encoder-decoder, the rest to the decoder.  The trainer
+(:mod:`repro_torch.training`) differentiates :func:`loss_fn`.  Every function runs on the device of the parameters;
 :func:`init_params` and :func:`make_batch` put them on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
@@ -45,6 +46,23 @@ def forward_logits(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
                                   batch["tokens"])
     return tfm.decoder_forward(params, cfg, batch["tokens"],
                                vision_embeds=batch.get("vision"))
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
+    """Next-token cross entropy in float32 with the standard 1e-4 z-loss,
+    over the positions ``batch["mask"]`` keeps (all without one)."""
+    logits = forward_logits(cfg, params, batch).to(torch.float32)
+    labels = batch["labels"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    mask = (torch.ones_like(nll) if mask is None
+            else mask.to(torch.float32))
+    count = torch.clamp(torch.sum(mask), min=1.0)
+    nll = torch.sum(nll * mask) / count
+    zloss = torch.sum((logz * mask) ** 2) / count
+    return nll + 1e-4 * zloss
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):

@@ -4,11 +4,10 @@ The port's own copy of :mod:`repro.models.config` (pure data, the same
 fields and defaults), so that the port imports nothing of the JAX package.
 
 Some fields only shape compilation and sharding in the JAX package and
-have no effect on one card here: ``remat`` (``jax.checkpoint`` around a
-block), ``scan_layers`` (``lax.scan`` over stacked layers; the port loops
-over per-layer parameter dicts), ``tp_mode`` and ``opt_collectives``
-(sharding constraints and the manual ``megatron_rs`` collectives; without a
-mesh ``repro.sharding.tp_ag_matmuls`` and ``tp_rs_matmul`` are plain
+have no effect on one card here: ``scan_layers`` (``lax.scan`` over
+stacked layers; the port loops over per-layer parameter dicts),
+``tp_mode`` and ``opt_collectives`` (sharding constraints and the manual
+``megatron_rs`` collectives; without a mesh ``repro.sharding.tp_ag_matmuls`` and ``tp_rs_matmul`` are plain
 ``x @ w``), ``moe_ep`` (it only shards the experts over the model axis)
 and ``moe_bf16_dispatch`` (it only casts the reference's one-hot dispatch
 and its combine weights to the activations' dtype earlier: the dispatch is
@@ -18,7 +17,9 @@ dispatches by index, :mod:`repro_torch.models.moe`).  They are kept so
 that a configuration reads the same in both packages; the port's entry
 points refuse any of them (:data:`NO_EFFECT`) away from its default, so
 that a setting that would do nothing fails loudly
-(``models/transformer.py::check_family``).
+(``models/transformer.py::check_family``).  ``remat`` takes effect: the
+port recomputes each block in the backward pass
+(``models/transformer.py::_maybe_remat``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 
 
 # fields with no effect in the port (see the module docstring)
-NO_EFFECT = ("remat", "scan_layers", "opt_collectives", "moe_bf16_dispatch",
+NO_EFFECT = ("scan_layers", "opt_collectives", "moe_bf16_dispatch",
              "tp_mode", "moe_ep")
 
 

@@ -8,7 +8,9 @@ family, ``EncDec``) with every leaf turned into a numpy array
 compute the same function on the same weights.  The JAX package stacks
 each block parameter along a leading layer axis (the hybrid and vlm
 families along two: super-block or group, then block within it); the port
-keeps one dict per layer.
+keeps one dict per layer.  :func:`params_to_numpy` is the inverse: the
+port's tree as the reference's stacked numpy tree, so that gradients,
+updated parameters and optimizer moments compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -117,3 +119,67 @@ def _encdec_from_numpy(cfg, tree, device) -> EncDec:
         final_norm=_tensor(_field(tree, "final_norm"), device),
         lm_head=_tensor(_field(tree, "lm_head"), device),
     )
+
+
+def _numpy(t) -> np.ndarray:
+    """Host numpy of a tensor (bf16 widened to float32, exactly: numpy has
+    no bfloat16 of its own)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+    return np.asarray(t)
+
+
+def _stack(layers):
+    """One (nested) dict of arrays with a leading layer axis from a list
+    of per-layer dicts of tensors or arrays: the inverse of
+    :func:`_layers`."""
+    first = layers[0]
+    return {k: _stack([layer[k] for layer in layers])
+            if isinstance(first[k], dict)
+            else np.stack([_numpy(layer[k]) for layer in layers])
+            for k in first}
+
+
+def params_to_numpy(cfg, params) -> dict:
+    """The reference's tree of stacked numpy arrays from the port's
+    parameters (or any tree of their structure: gradients, moments): a
+    dict keyed by the JAX ``Decoder``'s (or ``EncDec``'s) field names,
+    with the layouts :func:`params_from_numpy` reads (None where the
+    reference has None)."""
+    check_family(cfg)
+    if cfg.family == "encdec":
+        return {
+            "audio_proj": _numpy(params.audio_proj),
+            "enc_blocks": _stack(params.enc_blocks),
+            "enc_norm": _numpy(params.enc_norm),
+            "embed": _numpy(params.embed),
+            "dec_blocks": _stack(params.dec_blocks),
+            "final_norm": _numpy(params.final_norm),
+            "lm_head": _numpy(params.lm_head),
+        }
+    tail = cross = vision_proj = None
+    if cfg.family == "vlm":
+        n_groups, per = vlm_layout(cfg)
+        blocks = _stack([_stack(params.blocks[g * per:(g + 1) * per])
+                         for g in range(n_groups)])
+        cross = _stack(params.cross)
+        vision_proj = _numpy(params.vision_proj)
+    elif cfg.family == "hybrid":
+        blocks = _stack([{"recs": _stack(sb["recs"]), "attn": sb["attn"]}
+                         for sb in params.blocks])
+        tail = None if params.tail is None else _stack(params.tail)
+    else:
+        blocks = _stack(params.blocks)
+    return {
+        "embed": _numpy(params.embed),
+        "blocks": blocks,
+        "final_norm": _numpy(params.final_norm),
+        "lm_head": None if params.lm_head is None else _numpy(
+            params.lm_head),
+        "tail": tail,
+        "cross": cross,
+        "vision_proj": vision_proj,
+    }

@@ -3,9 +3,13 @@
 The port of :mod:`repro.models.transformer`.  Where the JAX package runs a
 ``lax.scan`` over parameters stacked along a leading layer axis, the port
 keeps one parameter dict per layer and loops over them; the decode cache
-is likewise one cache per layer.  ``remat`` and the sharding constraints
-have no counterpart on one card (:func:`check_family` refuses those fields
-away from their defaults).
+is likewise one cache per layer.  With ``cfg.remat`` each block of the
+full-sequence forward (:func:`decoder_forward`, :func:`encode_audio`,
+:func:`encdec_forward`) is recomputed in the backward pass instead of
+keeping its activations, where the reference wraps it in
+``jax.checkpoint``; this applies only while gradients are taken.  The
+sharding constraints have no counterpart on one card
+(:func:`check_family` refuses those fields away from their defaults).
 
 Layer layouts, as in the reference:
 
@@ -40,6 +44,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
@@ -264,6 +269,22 @@ def init_decoder(gen: torch.Generator, cfg) -> Decoder:
                    vision_proj)
 
 
+def _maybe_remat(fn, cfg):
+    """``fn(params, x, ...)``, recomputed in the backward pass (its
+    activations not kept) when ``cfg.remat`` is set and grad mode is on:
+    the reference's ``jax.checkpoint`` around a block.  Where nothing
+    requires grad the checkpoint keeps nothing and computes the same bits.
+    The forward draws no random numbers, so no RNG state is stashed."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+
+    def run(bp, x, *rest):
+        return checkpoint(fn, bp, x, *rest, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
+
+
 def _lm_logits(params: Decoder, x, cfg):
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.lm_head if params.lm_head is not None else params.embed.T
@@ -299,25 +320,42 @@ def decoder_forward(params: Decoder, cfg, tokens: torch.Tensor,
     x = params.embed[tokens]
     positions = _positions(B, S, tokens.device)
     if cfg.family == "ssm":
+        block = _maybe_remat(lambda bp, x_: ssm_block(bp, x_, cfg)[0], cfg)
         for bp in params.blocks:
-            x, _ = ssm_block(bp, x, cfg)
+            x = block(bp, x)
     elif cfg.family == "hybrid":
-        for sb in params.blocks:
+        def super_block(sb, x_):
             for rp in sb["recs"]:
-                x, _ = rec_block(rp, x, cfg)
-            x = decoder_block(sb["attn"], x, cfg, positions,
-                              window=cfg.local_window)
+                x_, _ = rec_block(rp, x_, cfg)
+            return decoder_block(sb["attn"], x_, cfg, positions,
+                                 window=cfg.local_window)
+
+        super_block = _maybe_remat(super_block, cfg)
+        tail_block = _maybe_remat(
+            lambda rp, x_: rec_block(rp, x_, cfg)[0], cfg)
+        for sb in params.blocks:
+            x = super_block(sb, x)
         for rp in params.tail or ():
-            x, _ = rec_block(rp, x, cfg)
+            x = tail_block(rp, x)
     elif cfg.family == "vlm":
         memory = _vision_memory(params, cfg, vision_embeds)
-        for blocks, cp, _ in _groups(params, cfg):
+
+        def group(gp, x_, memory_):
+            blocks, cp = gp
             for bp in blocks:
-                x = decoder_block(bp, x, cfg, positions, cfg.sliding_window)
-            x = cross_block(cp, x, memory, cfg)
+                x_ = decoder_block(bp, x_, cfg, positions,
+                                   cfg.sliding_window)
+            return cross_block(cp, x_, memory_, cfg)
+
+        group = _maybe_remat(group, cfg)
+        for blocks, cp, _ in _groups(params, cfg):
+            x = group((blocks, cp), x, memory)
     else:   # dense / moe
+        block = _maybe_remat(
+            lambda bp, x_: decoder_block(bp, x_, cfg, positions,
+                                         cfg.sliding_window), cfg)
         for bp in params.blocks:
-            x = decoder_block(bp, x, cfg, positions, cfg.sliding_window)
+            x = block(bp, x)
     return _lm_logits(params, x, cfg)
 
 
@@ -570,12 +608,17 @@ def encode_audio(params: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
     check_family(cfg)
     x = frames @ params.audio_proj
     positions = _positions(x.shape[0], x.shape[1], x.device)
+
+    def block(bp, x_):
+        h = rms_norm(x_, bp["attn_norm"], cfg.norm_eps)
+        x_ = x_ + att.multihead_attention(bp["attn"], h, cfg,
+                                          positions=positions, causal=False)
+        h = rms_norm(x_, bp["mlp_norm"], cfg.norm_eps)
+        return x_ + mlp(bp["mlp"], h, cfg)
+
+    block = _maybe_remat(block, cfg)
     for bp in params.enc_blocks:
-        h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-        x = x + att.multihead_attention(bp["attn"], h, cfg,
-                                        positions=positions, causal=False)
-        h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + mlp(bp["mlp"], h, cfg)
+        x = block(bp, x)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -604,8 +647,11 @@ def encdec_forward(params: EncDec, cfg, frames: torch.Tensor,
     B, S = tokens.shape
     x = params.embed[tokens]
     positions = _positions(B, S, tokens.device)
+    block = _maybe_remat(
+        lambda bp, x_, memory_: _dec_block(bp, x_, memory_, cfg,
+                                           positions)[0], cfg)
     for bp in params.dec_blocks:
-        x, _, _ = _dec_block(bp, x, memory, cfg, positions)
+        x = block(bp, x, memory)
     return _lm_logits(params, x, cfg)
 
 

@@ -1549,3 +1549,83 @@ def test_cached_cross_decode_on_bf16_is_the_f32_route(cuda, hd):
            * a).reshape(B, 1, H * hd)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     assert bool(((out - ref).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_flash_raises_under_grad_on_the_card(cuda):
+    """The kernel has no backward pass: with q requiring grad both routes
+    raise instead of returning an output with no gradient."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 128, 64), generator=gen).to(
+        torch.bfloat16).to(cuda) for _ in range(3))
+    q.requires_grad_()
+    for fn in (fa_ops.flash_attention, fa_ops._flash_attention_general):
+        n = fa_ops.launches
+        with pytest.raises(NotImplementedError, match="queue 2 entry 5"):
+            fn(q, k, v)
+        assert fa_ops.launches == n
+        with torch.no_grad():
+            assert bool(torch.isfinite(fn(q, k, v)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_train_steps_on_card_match_cpu(cuda, n_micro, monkeypatch):
+    """Reduced stablelm-3b in float32 (TF32 off): the same parameters and
+    batches, 5 steps on the card and on the CPU; the losses within 1e-4
+    relative (the two sum products in other orders).  The deterministic
+    step asks for the reproducible cuBLAS workspace setting; PyTorch's own
+    workspace on an sm90 card has that size."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.training import make_train_step, train_state_init
+    from repro_torch.training.trainer import CUBLAS_WORKSPACE, state_to
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+
+    cfg = get_reduced("stablelm-3b")
+    cpu_state = train_state_init(cfg, 0, device="cpu")
+    losses = {}
+    for name, state in (("cpu", cpu_state), ("card", state_to(cpu_state,
+                                                               cuda))):
+        data = SyntheticLMData(cfg.vocab_size, 32, 4, device=state.step.device)
+        step = make_train_step(cfg, n_microbatches=n_micro, base_lr=1e-3,
+                               warmup=0, total_steps=5)
+        losses[name] = []
+        for i in range(5):
+            state, m = step(state, data.batch(i))
+            losses[name].append(float(m["loss"]))
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_launcher_restart_is_bitwise_on_card(cuda, tmp_path):
+    """The launcher on the card: uninterrupted, then crashed after step 17
+    and resumed; the final checkpoints are the same bytes."""
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    args = ["--arch", "stablelm-3b", "--reduced", "--steps", "30", "--seq",
+            "32", "--batch", "4", "--ckpt-every", "10", "--log-every", "30",
+            "--device", "cuda"]
+
+    def run(ckpt, *extra):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *args,
+             "--ckpt-dir", str(ckpt), *extra], env=env, capture_output=True,
+            text=True, timeout=300)
+
+    assert run(tmp_path / "ref").returncode == 0
+    assert run(tmp_path / "ft", "--crash-at", "17").returncode == 42
+    assert run(tmp_path / "ft").returncode == 0
+    a, b = tmp_path / "ref" / "step_00000030", tmp_path / "ft" / "step_00000030"
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b))
+    for n in names:
+        assert (a / n).read_bytes() == (b / n).read_bytes(), n

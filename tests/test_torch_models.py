@@ -283,7 +283,7 @@ def test_config_copy_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("remat", False), ("scan_layers", False), ("opt_collectives", True),
+    ("scan_layers", False), ("opt_collectives", True),
     ("moe_bf16_dispatch", True), ("tp_mode", "ulysses"), ("moe_ep", True)])
 def test_fields_without_effect_are_refused(field, value):
     """A field that only shapes JAX compilation or sharding would do
