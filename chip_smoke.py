@@ -216,6 +216,24 @@ JSON line:
              decode bound also with the caches read (the cross K/V
              included)
 
+  dryrun     (after train; no kernel runs) each in a process of its own,
+             started together: (a) stablelm-3b train_4k and granite-3-8b
+             decode_32k traced in a fake world of 256 ranks (16 x 16) with
+             the production shardings, full mode and roofline variant,
+             mamba2-780m prefill_32k in the roofline variant, and
+             REPRO_DRYRUN's flagship greedy step on 256 and 512 ranks; one
+             line each with the per-device memory, FLOPs, bytes,
+             collective bytes by kind and the H100 roofline; the gate is
+             that every cell traces (and the GW step's FLOPs reach 8 N M /
+             P); (b) stablelm-3b at the train phase's shape (8 x 2,048, 2
+             microbatches, remat) in a world of one, held to the train
+             phase: the predicted argument bytes equal the bytes its
+             state and batch held, and the traced FLOPs the counting
+             mode's (launch/roofline.py::CostCounter) on one more real
+             step of the train phase, both exactly; the predicted peak and
+             roofline seconds beside the measured peak and step, as
+             ratios with no gate
+
   train      the trainer (no kernel of its own; attention by einsum), in
              a child process of this script (``--train``), the one
              that sets CUBLAS_WORKSPACE_CONFIG for the deterministic step:
@@ -3540,6 +3558,19 @@ def train_full_width(dev, smi, reset_counts, read_counts):
           f"parameter leaves did not move")
     check(int(state.step) == TRAIN_STEPS, f"train: step {int(state.step)}")
     del before
+    # the dry run's grounding (its part (b)): the bytes the state and a
+    # batch hold, summed over their live tensors, and the counting mode's
+    # FLOPs of one more real step (after the timed ones, uncounted by the
+    # launch counters)
+    from repro_torch.launch.roofline import CostCounter
+    grounding = dict(state_bytes=sum(t.nbytes for t in leaves(state)),
+                     batch_bytes=sum(t.nbytes for t in leaves(batch)),
+                     peak_mem_gb=peak_gb, step_ms_mean=None)
+    counter = CostCounter()
+    with counter:
+        state, _ = step(state, data.batch(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    grounding["step_flops"] = counter.flops
     step_ms = float(np.mean(times[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     fl = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
@@ -3558,6 +3589,8 @@ def train_full_width(dev, smi, reset_counts, read_counts):
         grad_norms=[m["grad_norm"] for m in metrics],
         lrs=[m["lr"] for m in metrics], leaves_moved=moved,
         launches=launches, card=smi)
+    grounding["step_ms_mean"] = step_ms
+    fields["grounding"] = grounding
     del state, step, data
     torch.cuda.empty_cache()
     return launches, fields
@@ -3648,7 +3681,9 @@ def train_card_vs_cpu(dev) -> dict:
 
 def train_main(out: str) -> None:
     """The child process of the train phase: (a), (b) and (c) (see the
-    module docstring); writes (a)'s launches as JSON to ``out``.  cuBLAS's
+    module docstring); writes (a)'s launches and the dry run's grounding
+    (the state's and a batch's bytes, one real step's counted FLOPs, the
+    peak and the step time) as JSON to ``out``.  cuBLAS's
     reproducible workspace is fixed here, before the process's first
     cuBLAS call, so that it reaches no other phase."""
     from repro_torch.training.trainer import CUBLAS_WORKSPACE
@@ -3664,13 +3699,14 @@ def train_main(out: str) -> None:
     fields.update(train_card_vs_cpu(dev))
     emit("train", phase_s=time.perf_counter() - t0, **fields)
     with open(out, "w") as f:
-        json.dump(launches, f)
+        json.dump({"launches": launches, "grounding": fields["grounding"]},
+                  f)
 
 
 def train_phase() -> dict:
     """Runs :func:`train_main` in a child process on the same card, with
-    this process's cached blocks released first; returns (a)'s
-    launches."""
+    this process's cached blocks released first; returns (a)'s launches
+    and the dry run's grounding."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3680,7 +3716,141 @@ def train_phase() -> dict:
         check(p.returncode == 0, f"train: the phase's process exited "
               f"{p.returncode}")
         with open(out) as f:
-            return json.load(f)
+            rec = json.load(f)
+        return rec["launches"], rec["grounding"]
+
+
+# the dry run's cells, each traced in its own process in a fake world of
+# 256 ranks (full mode and roofline variant); mamba2-780m's prefill only in
+# the roofline variant (one SSD chunk, scaled), its full 128-chunk trace
+# takes minutes; mixtral-8x7b train_4k multi is not traced here (its full
+# and roofline traces take 6 and 4 minutes of a CPU: PERF.md)
+DRYRUN_CELLS = (("stablelm-3b", "train_4k", "both"),
+                ("granite-3-8b", "decode_32k", "both"),
+                ("mamba2-780m", "prefill_32k", "roofline"))
+
+# (b): stablelm-3b traced in a world of one at the train phase's shape
+DRYRUN_ONE = """
+import json, sys
+import torch
+from repro_torch.compat import make_auto_mesh
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import roofline as R
+from repro_torch.launch.mesh import init_fake_world
+from repro_torch.models.config import ShapeConfig
+init_fake_world(1)
+mesh = make_auto_mesh((1, 1), ("data", "model"), sys.argv[1])
+cfg = get_config("stablelm-3b")
+shape = ShapeConfig("train_phase", 2048, 8, "train")
+fn, mk, extra = D.build_cell(cfg, shape, mesh, n_micro=2)
+rec = D.trace(fn, mk, mesh)
+rec["roofline"] = R.roofline_seconds(rec["cost"])
+print(json.dumps(rec))
+"""
+
+
+def dryrun_phase(grounding: dict) -> None:
+    """(a) the dry run's cells and REPRO_DRYRUN on the 256- and 512-rank
+    meshes, and (b) a world of one, each in a process of its own, started
+    together: every one must trace; one line each.  (b) is held to the
+    train phase's ``grounding``: the predicted argument bytes equal the
+    bytes its state and batch held, and the traced FLOPs the counting
+    mode's FLOPs on one real step of the card, exactly."""
+    from repro_torch.configs import get_config
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {}
+        for arch, shape, mode in DRYRUN_CELLS:
+            jobs[f"{arch} {shape}"] = (
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--mode", mode, "--device", "cuda", "--out", tmp], env)
+        for mesh in ("single", "multi"):
+            jobs[f"REPRO_DRYRUN {mesh}"] = (
+                [sys.executable, "-m", "repro_torch.launch.reduce", "--mesh",
+                 mesh, "--device", "cuda", "--out", tmp],
+                dict(env, REPRO_DRYRUN="1"))
+        jobs["world_of_one"] = ([sys.executable, "-c", DRYRUN_ONE, "cuda"],
+                                env)
+        procs = {}
+        for name, (cmd, e) in jobs.items():
+            log = open(os.path.join(tmp, name.replace(" ", "_") + ".log"),
+                       "w+")
+            procs[name] = (subprocess.Popen(cmd, env=e, stdout=log,
+                                            stderr=subprocess.STDOUT), log)
+        deadline = time.monotonic() + 600
+        try:
+            for name, (p, log) in procs.items():
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = {}
+        for name, (p, log) in procs.items():
+            log.seek(0)
+            text = log.read()
+            log.close()
+            check(p.returncode == 0, f"dryrun: {name} exited "
+                  f"{p.returncode}: {text[-1500:]}")
+            outs[name] = text
+        for arch, shape, _ in DRYRUN_CELLS:
+            with open(os.path.join(tmp, f"{arch}__{shape}__single.json")) \
+                    as f:
+                rec = json.load(f)
+            full = rec.get("full", {})
+            roof = rec["roofline"]
+            emit("dryrun", cell=f"{arch} {shape} single", devices=256,
+                 memory=full.get("memory"), cost=full.get("raw_cost"),
+                 collective_detail=full.get("collective_detail"),
+                 full_roofline=full.get("roofline"),
+                 fitted=roof["fitted_per_device"], roofline=roof["roofline"],
+                 useful_flop_ratio=roof["useful_flop_ratio"],
+                 trace_s=full.get("trace_s"))
+        for mesh in ("single", "multi"):
+            with open(os.path.join(tmp, f"gw_greedy__{mesh}.json")) as f:
+                rec = json.load(f)
+            check(rec["per_device_cost"]["flops"]
+                  >= rec["useful_flops_per_device"],
+                  f"dryrun: REPRO_DRYRUN {mesh} traced fewer FLOPs than "
+                  f"the useful 8 N M / P")
+            emit("dryrun", cell=f"REPRO_DRYRUN {mesh}",
+                 devices=rec["devices"], memory=rec["memory"],
+                 cost=rec["per_device_cost"],
+                 collective_detail=rec["collective_detail"],
+                 roofline=rec["roofline"],
+                 useful_flop_ratio=rec["useful_flop_ratio"])
+        one = json.loads(outs["world_of_one"].strip().splitlines()[-1])
+        args = one["memory"]["argument_size_in_bytes"]
+        real = grounding["state_bytes"] + grounding["batch_bytes"]
+        check(args == real,
+              f"dryrun (b): predicted argument bytes {args} != the train "
+              f"phase's state {grounding['state_bytes']} + batch "
+              f"{grounding['batch_bytes']}")
+        check(one["cost"]["flops"] == grounding["step_flops"],
+              f"dryrun (b): traced FLOPs {one['cost']['flops']} != the "
+              f"counting mode's {grounding['step_flops']} on a real step")
+        peak = one["memory"]["peak_size_in_bytes"]
+        emit("dryrun", cell="stablelm-3b world of one (train phase shape)",
+             argument_bytes=args, state_bytes=grounding["state_bytes"],
+             batch_bytes=grounding["batch_bytes"],
+             traced_flops=one["cost"]["flops"],
+             real_step_flops=grounding["step_flops"],
+             analytic_flops=train_flops(get_config(TRAIN_ARCH), TRAIN_BATCH,
+                                        TRAIN_SEQ),
+             predicted_peak_bytes=peak,
+             measured_peak_gb=grounding["peak_mem_gb"],
+             peak_ratio=peak / 1e9 / grounding["peak_mem_gb"],
+             roofline=one["roofline"],
+             measured_step_ms=grounding["step_ms_mean"],
+             roofline_step_ratio=one["roofline"]["bound_s"] * 1e3
+             / grounding["step_ms_mean"])
+    emit("dryrun", phase_s=time.perf_counter() - t0)
 
 
 def counters() -> dict:
@@ -4301,7 +4471,11 @@ def main() -> None:
 
     # --- the trainer: stablelm-3b whole on the card, the launcher's crash
     # and resume, the card against the CPU
-    train_launches = train_phase()
+    train_launches, grounding = train_phase()
+
+    # --- the dry run: the sharded LM path and the GW step traced in fake
+    # worlds of 256 / 512 ranks, and in a world of one (no kernel runs)
+    dryrun_phase(grounding)
 
     # one entry per kernel; a wrapper that routes between two kernels has
     # an entry for each, which counts its own route's launches

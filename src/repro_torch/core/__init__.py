@@ -33,7 +33,11 @@ The recommended entry point is the front door, :mod:`repro_torch.api` —
   (the hand-written CUDA kernels, or their plain versions on the CPU).
 """
 
-from repro_torch.core.backend import resolve_backend
+from repro_torch.core.backend import (
+    default_backend,
+    resolve_backend,
+    set_default_backend,
+)
 from repro_torch.core.batch_greedy import BatchGreedyResult, batch_rb_greedy
 from repro_torch.core.distributed import (
     DistGreedyState,
@@ -68,5 +72,6 @@ __all__ = [
     "rb_greedy_streamed", "rb_randomized_streamed",
     "RandomizedSketchResult", "estimate_rank", "RankEstimate",
     "batch_rb_greedy", "BatchGreedyResult", "distributed_greedy",
-    "DistGreedyState", "dist_greedy_init",
+    "DistGreedyState", "dist_greedy_init", "default_backend",
+    "set_default_backend",
 ]

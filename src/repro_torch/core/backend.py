@@ -51,7 +51,8 @@ Two backends:
             explicit request only — the counterpart of the reference's
             ``xla_ref``.
 
-Precedence: explicit ``backend=`` > ``REPRO_TORCH_GREEDY_BACKEND`` > ``auto``.
+Precedence: explicit ``backend=`` > ``REPRO_TORCH_GREEDY_BACKEND`` >
+:func:`set_default_backend` > ``auto``.
 """
 
 from __future__ import annotations
@@ -78,16 +79,34 @@ from repro_torch.kernels.sketch_omega.ref import sketch_omega_ref
 VALID_BACKENDS = ("auto", "ref")
 
 _ENV_VAR = "REPRO_TORCH_GREEDY_BACKEND"
+_default_backend = "auto"
+
+
+def set_default_backend(name: str) -> None:
+    """Set the process-wide default backend (the environment variable and
+    an explicit ``backend=`` take precedence over it)."""
+    global _default_backend
+    if name not in VALID_BACKENDS:
+        raise ValueError(
+            f"unknown greedy backend {name!r}; valid: {VALID_BACKENDS}")
+    _default_backend = name
+
+
+def default_backend() -> str:
+    """The backend a call with no ``backend=`` takes: the
+    ``REPRO_TORCH_GREEDY_BACKEND`` variable if set, else the process-wide
+    default (``"auto"`` unless :func:`set_default_backend` changed it)."""
+    return os.environ.get(_ENV_VAR) or _default_backend
 
 
 def resolve_backend(backend: str | None = None) -> str:
     """Resolve a backend request to ``"auto"`` or ``"ref"``.
 
-    ``None`` consults the ``REPRO_TORCH_GREEDY_BACKEND`` env var, then
-    falls back to ``"auto"``.
+    ``None`` consults the ``REPRO_TORCH_GREEDY_BACKEND`` env var, then the
+    process-wide default (:func:`set_default_backend`, ``"auto"``).
     """
     if backend is None:
-        backend = os.environ.get(_ENV_VAR) or "auto"
+        backend = default_backend()
     if backend not in VALID_BACKENDS:
         raise ValueError(
             f"unknown greedy backend {backend!r}; valid: {VALID_BACKENDS}")

@@ -19,6 +19,17 @@ DTYPE_SUFFIX = {
 }
 
 
+def is_fake(t) -> bool:
+    """A fake tensor (a traced step, :mod:`repro_torch.kernels.traced`):
+    shapes and dtypes only.  A plain tensor answers at once, with nothing
+    imported."""
+    if type(t) in (torch.Tensor, torch.nn.Parameter):
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def check_tensor(kernel: str, name: str, t: torch.Tensor,
                  dtype: torch.dtype, shape: tuple, device: torch.device):
     """Raise ``ValueError`` unless ``t`` is a contiguous CUDA tensor of the

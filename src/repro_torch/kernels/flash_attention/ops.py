@@ -1,7 +1,9 @@
 """Wrapper of the CUDA flash attention: two hand-written kernels, chosen by
 shape.
 
-A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+A fake tensor (a traced step) takes the kernel's shape-only stand-in
+(:mod:`repro_torch.kernels.traced`).  A CPU tensor takes the plain version
+(:mod:`.ref`); a CUDA tensor launches
 one of the two kernels, by the fixed rule of :func:`kernel_route`, or
 raises:
 
@@ -35,7 +37,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import ptr, raise_on_error, stream_ptr
+from repro_torch.kernels.common import (
+    is_fake, ptr, raise_on_error, stream_ptr,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
@@ -145,6 +149,13 @@ def _flash(q, k, v, causal, window, sm_scale, general):
     global launches, launches_sm90, launches_general, launches_noncausal
     _check_no_grad(q, k, v)
     _check_shapes(q, k, v, causal, window)
+    if is_fake(q):
+        from repro_torch.kernels import traced
+
+        if sm_scale not in (None, q.shape[-1] ** -0.5):
+            raise ValueError("flash_attention: a traced call takes the "
+                             "default scale")
+        return traced.flash_attention(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)

@@ -1,7 +1,9 @@
 """Wrapper of the CUDA pivot-search sweep: two hand-written kernels, chosen by
 shape.
 
-A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+A fake tensor (a traced step) takes the kernel's shape-only stand-in
+(:mod:`repro_torch.kernels.traced`).  A CPU tensor takes the plain version
+(:mod:`.ref`); a CUDA tensor launches
 one of the two kernels, by the fixed rule of :func:`kernel_route`, or
 raises:
 
@@ -30,8 +32,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    DTYPE_SUFFIX, base_aligned16, check_tensor, flag_ptr, kernel_dtype, ptr,
-    raise_on_error, stream_ptr, ticket_counters,
+    DTYPE_SUFFIX, base_aligned16, check_tensor, flag_ptr, is_fake,
+    kernel_dtype, ptr, raise_on_error, stream_ptr, ticket_counters,
 )
 from repro_torch.kernels.greedy_update.ref import greedy_update_ref
 
@@ -91,6 +93,10 @@ def _greedy_update_general(q, S, acc, norms_sq, active=None):
 
 def _greedy_update(q, S, acc, norms_sq, active, general):
     global launches, launches_sm90, launches_general
+    if is_fake(S):
+        from repro_torch.kernels import traced
+
+        return traced.greedy_update(q, S, acc, norms_sq, active)
     if S.device.type == "cpu":
         return greedy_update_ref(q, S, acc, norms_sq, active)
     if S.device.type != "cuda":

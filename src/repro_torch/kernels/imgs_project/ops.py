@@ -1,7 +1,9 @@
 """Wrapper of the CUDA classical-GS pass: two hand-written kernels, chosen by
 shape.
 
-A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+A fake tensor (a traced step) takes the kernel's shape-only stand-in
+(:mod:`repro_torch.kernels.traced`).  A CPU tensor takes the plain version
+(:mod:`.ref`); a CUDA tensor launches
 one of the two kernels, by the fixed rule of :func:`kernel_route`, or
 raises:
 
@@ -30,8 +32,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    DTYPE_SUFFIX, barrier_counter, check_tensor, flag_ptr, kernel_dtype, ptr,
-    raise_on_error, scratch_buffer, stream_ptr,
+    DTYPE_SUFFIX, barrier_counter, check_tensor, flag_ptr, is_fake,
+    kernel_dtype, ptr, raise_on_error, scratch_buffer, stream_ptr,
 )
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 
@@ -113,6 +115,10 @@ def _imgs_project_general(v, Q, active=None):
 
 def _imgs_project(v, Q, active, general):
     global launches, launches_sm90, launches_general
+    if is_fake(Q):
+        from repro_torch.kernels import traced
+
+        return traced.imgs_project(v, Q, active)
     if Q.device.type == "cpu":
         return imgs_project_ref(v, Q, active)
     if Q.device.type != "cuda":

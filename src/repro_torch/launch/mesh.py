@@ -195,15 +195,38 @@ def spawn_ranks(fn, world_size: int, args: tuple = (), *, device="cuda",
     return results
 
 
-def make_production_mesh(device_type=None):
-    """The production mesh over every rank of the world.
+def init_fake_world(world_size: int, rank: int = 0):
+    """Join this process, as ``rank``, to a fake world of ``world_size``
+    ranks in one process (PyTorch's ``fake`` backend): collectives return
+    at once and move nothing, so a step traced under ``FakeTensorMode``
+    over a mesh of the world allocates nothing and talks to no one.  The
+    dry run's world (:mod:`repro_torch.launch.dryrun`)."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "init_fake_world: this PyTorch has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg): the dry run "
+            "needs it") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    return Ranks(rank, world_size, rank, "fake", torch.device("cpu"))
 
-    The reference's is a TPU v5e pod (16 x 16 over ``("data", "model")``;
-    its two-pod form waits for the dry run, ROADMAP.md queue 1 item 9).
-    One host of cards has no such pod: this mesh puts every rank of the
-    world on the ``data`` dimension, ``(W, 1)``, so the column-distributed
-    greedy shards S over all of them.
-    """
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """The reference's production mesh over the world: one pod (16 x 16
+    over ``("data", "model")``, 256 ranks) or two (2 x 16 x 16 over
+    ``("pod", "data", "model")``, 512).  It needs a world of that size:
+    the dry run's fake one (:func:`init_fake_world`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_auto_mesh(shape, axes, device_type)
+
+
+def make_rank_mesh(device_type=None):
+    """Every rank of the world on the ``data`` dimension, ``(W, 1)`` over
+    ``("data", "model")``: the mesh of one host of cards, over which the
+    column-distributed greedy shards S."""
     w = dist.get_world_size()
     return make_auto_mesh((w, 1), ("data", "model"), device_type)
 

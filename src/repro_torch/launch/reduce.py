@@ -17,10 +17,15 @@ CPU, or with ranks sharing a card, over gloo
 ``distributed`` runs that strategy in one process over a
 :class:`~repro_torch.data.providers.WaveformProvider`.
 
-The reference's dry-run mode (``REPRO_DRYRUN=1``: lower and compile one
-step through XLA at the 512-device production mesh) belongs with the
-port's roofline launcher (ROADMAP.md queue 1 item 9); here it raises
-``NotImplementedError``.
+Dry-run mode (``REPRO_DRYRUN=1``, :func:`dryrun`): trace one distributed
+greedy step at the paper's flagship shape (10,000 x 3,276,800 complex64,
+columns padded to the world, max_k 100) as rank 0 of a fake world of 256
+or 512 ranks (``--mesh single|multi``), on fake tensors: nothing is
+allocated.  It reports the per-device memory, cost terms, collectives and
+H100 roofline, and ``useful_flop_ratio`` (useful = 8 N M / P)::
+
+    REPRO_DRYRUN=1 python -m repro_torch.launch.reduce --mesh multi \
+        --device cpu --out artifacts/reduce
 """
 
 from __future__ import annotations
@@ -33,6 +38,77 @@ import numpy as np
 
 from repro_torch.configs.gw_greedy import CONFIG as GW_CONFIG
 from repro_torch.configs.gw_greedy import reduced as gw_reduced
+
+
+def dryrun(mesh_kind: str, out_dir: str, device: str = "cuda") -> dict:
+    """One traced step of the column-distributed greedy at the flagship
+    shape on the production mesh of a fake world; the record is printed
+    and written to ``out_dir/gw_greedy__<mesh>.json``."""
+    import json
+
+    import torch
+
+    from repro_torch.core.distributed import (
+        DistGreedyState, make_dist_greedy_step,
+    )
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.dryrun import fake_world_mode
+    from repro_torch.launch.mesh import (
+        close_ranks, init_fake_world, make_production_mesh,
+    )
+
+    multi = mesh_kind == "multi"
+    init_fake_world(512 if multi else 256)
+    try:
+        mesh = make_production_mesh(multi_pod=multi, device_type=device)
+        wl = GW_CONFIG
+        n_dev = mesh.size()
+        # columns padded to divide the ranks (greedycpp's N/P blocks)
+        M = -(-wl.n_cols // n_dev) * n_dev
+        N, m_loc, K = wl.n_rows, M // n_dev, wl.max_k
+        dt, rdt = torch.complex64, torch.float32
+        step = make_dist_greedy_step(mesh, M)
+        with fake_world_mode():
+            def empty(shape, dtype):
+                return torch.empty(shape, dtype=dtype, device=device)
+
+            S_loc = empty((N, m_loc), dt)
+            state = DistGreedyState(
+                Q=empty((N, K), dt), R=empty((K, m_loc), dt),
+                norms_sq=empty((m_loc,), rdt), acc=empty((m_loc,), rdt),
+                pivots=empty((K,), torch.int32), errs=empty((K,), rdt),
+                k=torch.zeros((), dtype=torch.int64, device=device))
+            counter = R.CostCounter()
+            arg_bytes = counter.track((S_loc, state))
+            t0 = time.time()
+            with counter:
+                out = step(S_loc, state)
+            trace_s = time.time() - t0
+            out_bytes = counter.storages_bytes(out, exclude=(S_loc, state))
+    finally:
+        close_ranks()
+    terms = counter.terms()
+    useful = 8.0 * N * m_loc
+    rec = {
+        "workload": wl.name, "mesh": mesh_kind, "devices": n_dev,
+        "shape": [N, M], "dtype": "complex64", "trace_s": trace_s,
+        "memory": {"argument_size_in_bytes": arg_bytes,
+                   "output_size_in_bytes": out_bytes,
+                   "temp_size_in_bytes": max(counter.peak - arg_bytes, 0),
+                   "peak_size_in_bytes": counter.peak},
+        "per_device_cost": {k: v for k, v in terms.items()
+                            if k != "collective_detail"},
+        "collective_detail": terms["collective_detail"],
+        "roofline": R.roofline_seconds(terms),
+        "useful_flops_per_device": useful,
+        "useful_flop_ratio": useful / max(terms["flops"], 1.0),
+    }
+    print(json.dumps(rec, indent=1, default=str), flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"gw_greedy__{mesh_kind}.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+    return rec
 
 
 def real_run(tau: float | None, out: str, small: bool, chunk: int = 16,
@@ -147,12 +223,14 @@ def main(argv=None):
                     help="streamed tile width in columns")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", choices=["single", "multi"],
+                    default="single",
+                    help="REPRO_DRYRUN's production mesh: 256 or 512 "
+                         "ranks")
     args = ap.parse_args(argv)
     if os.environ.get("REPRO_DRYRUN"):
-        raise NotImplementedError(
-            "REPRO_DRYRUN (lower and compile one step at the production "
-            "mesh) is not ported: ROADMAP.md queue 1 item 9 (the roofline "
-            "launcher)")
+        dryrun(args.mesh, args.out, args.device)
+        return
     real_run(args.tau, args.out, args.small, chunk=args.chunk,
              backend=args.backend, strategy=args.strategy,
              workdir=args.workdir, resume=args.resume, tile_m=args.tile_m,

@@ -3,7 +3,9 @@ decode.
 
 The port of :mod:`repro.models.api` for every family; ``encdec``
 dispatches to the encoder-decoder, the rest to the decoder.  The trainer
-(:mod:`repro_torch.training`) differentiates :func:`loss_fn`.  Every function runs on the device of the parameters;
+(:mod:`repro_torch.training`) differentiates :func:`loss_fn`; the dry run
+(:mod:`repro_torch.launch.dryrun`) reads :func:`abstract_params` and
+:func:`param_specs`.  Every function runs on the device of the parameters;
 :func:`init_params` and :func:`make_batch` put them on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
@@ -18,13 +20,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.sharding import is_dtensor, take_last
 
 
-def _generator(seed_or_gen, device) -> torch.Generator:
+class _ShapesOnly:
+    """Stands in for a generator on the ``meta`` device, which has none:
+    the init helpers then make empty tensors and draw nothing."""
+
+    device = torch.device("meta")
+
+
+def _generator(seed_or_gen, device):
     """``seed_or_gen`` itself, or a generator seeded with it on ``device``
     (``cuda`` unless asked otherwise)."""
     if isinstance(seed_or_gen, torch.Generator):
         return seed_or_gen
+    if device is not None and torch.device(device).type == "meta":
+        return _ShapesOnly()
     return torch.Generator(device=resolve_device(device)).manual_seed(
         int(seed_or_gen))
 
@@ -36,6 +48,20 @@ def init_params(cfg: ModelConfig, seed_or_gen=0, device=None):
     if cfg.family == "encdec":
         return tfm.init_encdec(gen, cfg)
     return tfm.init_decoder(gen, cfg)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameters' shapes and dtypes on the ``meta`` device: the tree
+    :func:`init_params` makes, with nothing allocated and nothing drawn."""
+    return init_params(cfg, 0, device="meta")
+
+
+def param_specs(cfg: ModelConfig):
+    """Each parameter's logical axes (:mod:`repro_torch.sharding`), a tree
+    of the parameters' structure."""
+    if cfg.family == "encdec":
+        return tfm.encdec_specs(cfg)
+    return tfm.decoder_specs(cfg)
 
 
 def forward_logits(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
@@ -53,8 +79,14 @@ def loss_fn(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
     over the positions ``batch["mask"]`` keeps (all without one)."""
     logits = forward_logits(cfg, params, batch).to(torch.float32)
     labels = batch["labels"]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # vocab-parallel: max and sum reduce over the vocab's shards
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()
+        logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) \
+            + m[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+    gold = take_last(logits, labels.long())
     nll = logz - gold
     mask = batch.get("mask")
     mask = (torch.ones_like(nll) if mask is None

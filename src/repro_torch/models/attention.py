@@ -30,6 +30,9 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import dtype_of, rope, trunc_normal, zeros
+from repro_torch.sharding import (
+    constrain, is_dtensor, proj, replicate_dim, shards_of,
+)
 
 NEG_INF = -1e30
 
@@ -52,18 +55,41 @@ def init_attn(gen: torch.Generator, cfg, cross: bool = False):
     return p
 
 
+def attn_specs(cfg, cross: bool = False):
+    p = {
+        "wq": ("fsdp", "tp"),
+        "wk": ("fsdp", "tp"),
+        "wv": ("fsdp", "tp"),
+        "wo": ("tp", "fsdp"),
+    }
+    if cfg.qkv_bias and not cross:
+        p["bq"] = ("tp",)
+        p["bk"] = ("tp",)
+        p["bv"] = ("tp",)
+    return p
+
+
+def _heads(t, B, S, n, hd):
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose last dim is
+    sharded into pieces that do not hold whole heads (fewer heads than the
+    model axis has ranks) is gathered over that dim first."""
+    if is_dtensor(t) and n % shards_of(t, t.ndim - 1):
+        t = replicate_dim(t, t.ndim - 1)
+    return t.reshape(B, S, n, hd)
+
+
 def _qkv(p, x, cfg, kv_x=None):
     """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
     kv_x = x if kv_x is None else kv_x
     B, S, Skv = x.shape[0], x.shape[1], kv_x.shape[1]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = kv_x @ p["wk"]
-    v = kv_x @ p["wv"]
+    q = proj(x, p["wq"])
+    k = proj(kv_x, p["wk"])
+    v = proj(kv_x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, Skv, K, hd),
-            v.reshape(B, Skv, K, hd))
+    return (_heads(q, B, S, H, hd), _heads(k, B, Skv, K, hd),
+            _heads(v, B, Skv, K, hd))
 
 
 def _mask(Sq, Skv, causal, window, device, j=None):
@@ -80,12 +106,65 @@ def _mask(Sq, Skv, causal, window, device, j=None):
     return mask
 
 
+def _expand_kv(q, k, v):
+    """k and v for q's heads.  Where q's heads are split over more ranks
+    than there are kv heads (DTensors under a mesh), each kv head is
+    repeated for its query heads, so that the heads shard alike: the same
+    attention, each query head reading its own kv head."""
+    if not is_dtensor(q):
+        return k, v
+    n = shards_of(q, 2)
+    if n == 1 or k.shape[2] % n == 0:
+        return k, v
+    g = q.shape[2] // k.shape[2]
+    return tuple(t.repeat_interleave(g, dim=2).redistribute(
+        q.device_mesh, q.placements) for t in (k, v))
+
+
+def _sharded_attn(q, k, v, causal, window, impl, chunk):
+    """Attention of DTensors: each rank attends its own batch rows and
+    heads (the sequence and head dims gathered first) by ``impl``, on
+    plain local tensors (flash on a fake one takes its traced stand-in)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    k, v = _expand_kv(q, k, v)
+    mesh = q.device_mesh
+
+    def keep(t):        # batch (0) and heads (2) stay sharded
+        return t.redistribute(mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim in (1, 3) else p
+            for p in t.placements])
+
+    q, k, v = keep(q), keep(k), keep(v)
+    if any(isinstance(a, Shard) and a.dim == 2 and not (
+            isinstance(b, Shard) and b.dim == 2)
+           for a, b in zip(q.placements, k.placements)):
+        k = k.redistribute(mesh, q.placements)
+        v = v.redistribute(mesh, q.placements)
+
+    def local(ql, kl, vl):
+        if impl == "flash":
+            return flash_attention(
+                ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+                causal=causal, window=window).transpose(1, 2)
+        if impl == "chunked":
+            return _chunked_attn(ql, kl, vl, causal, window, chunk)
+        return _einsum_attn(ql, kl, vl, causal, window)
+
+    return local_map(local, out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements,
+                                    v.placements),
+                     redistribute_inputs=False)(q, k, v)
+
+
 def _einsum_attn(q, k, v, causal, window):
     """q: (B,Sq,H,hd); k/v: (B,Skv,K,hd). Materialized-logit attention.
 
     The f32 logits are scaled in place and, with no mask to apply
     (bidirectional, no window), not copied: at most two (B, H, Sq, Skv)
     f32 arrays live at once, the logits and their softmax."""
+    k, v = _expand_kv(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     g = H // K
@@ -104,6 +183,7 @@ def _einsum_attn(q, k, v, causal, window):
 
 def _chunked_attn(q, k, v, causal, window, chunk):
     """Online softmax over kv chunks; math identical to the flash kernel."""
+    k, v = _expand_kv(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     g = H // K
@@ -148,7 +228,10 @@ def multihead_attention(
     """Full-sequence attention (train / prefill / cross).  With ``kv_x``
     the keys and values come from that memory and RoPE is not applied, as
     in the reference; ``causal=False`` is bidirectional (the encoder, and
-    every cross call)."""
+    every cross call).
+
+    Under a mesh the reference's constraints apply: heads over tp around
+    the attention itself."""
     cross = kv_x is not None
     q, k, v = _qkv(p, x, cfg, kv_x)
     if use_rope and not cross:
@@ -156,11 +239,16 @@ def multihead_attention(
             positions = torch.arange(x.shape[1], device=x.device)[None, :]
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
 
     impl = impl or cfg.attn_impl
     if impl == "auto":
         impl = "einsum" if k.shape[1] <= 8192 else "chunked"
-    if impl == "flash":
+    if is_dtensor(q):
+        o = _sharded_attn(q, k, v, causal, window, impl, cfg.attn_chunk)
+    elif impl == "flash":
         o = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window,
@@ -169,8 +257,9 @@ def multihead_attention(
         o = _chunked_attn(q, k, v, causal, window, cfg.attn_chunk)
     else:
         o = _einsum_attn(q, k, v, causal, window)
+    o = constrain(o, "dp", None, "tp", None)
     B, S = o.shape[0], o.shape[1]
-    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -323,6 +412,8 @@ def decode_attention(
         k_read, v_read = cache.k, cache.v
 
     g = H // K
+    if is_dtensor(q):       # one token's query: every head on every rank
+        q = replicate_dim(q, 2)
     qh = q.reshape(B, 1, K, g, hd).to(torch.float32) * (hd ** -0.5)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qh, k_read.to(torch.float32))
     slots = torch.arange(size, device=x_t.device)

@@ -4,21 +4,21 @@ The port's own copy of :mod:`repro.models.config` (pure data, the same
 fields and defaults), so that the port imports nothing of the JAX package.
 
 Some fields only shape compilation and sharding in the JAX package and
-have no effect on one card here: ``scan_layers`` (``lax.scan`` over
-stacked layers; the port loops over per-layer parameter dicts),
-``tp_mode`` and ``opt_collectives`` (sharding constraints and the manual
-``megatron_rs`` collectives; without a mesh ``repro.sharding.tp_ag_matmuls`` and ``tp_rs_matmul`` are plain
-``x @ w``), ``moe_ep`` (it only shards the experts over the model axis)
-and ``moe_bf16_dispatch`` (it only casts the reference's one-hot dispatch
-and its combine weights to the activations' dtype earlier: the dispatch is
-exact either way, and ``repro/models/moe.py:114`` rounds the combine
-weights to that dtype anyway, so the result is the same bits; the port
-dispatches by index, :mod:`repro_torch.models.moe`).  They are kept so
-that a configuration reads the same in both packages; the port's entry
-points refuse any of them (:data:`NO_EFFECT`) away from its default, so
-that a setting that would do nothing fails loudly
-(``models/transformer.py::check_family``).  ``remat`` takes effect: the
-port recomputes each block in the backward pass
+are refused here away from their defaults (:data:`NO_EFFECT`,
+``models/transformer.py::check_family``), so that a setting that would do
+nothing, or that nothing here tests yet, fails loudly: ``scan_layers``
+(``lax.scan`` over stacked layers; the port loops over per-layer
+parameter dicts), ``moe_bf16_dispatch`` (it only casts the reference's
+one-hot dispatch and its combine weights to the activations' dtype
+earlier: the dispatch is exact either way, and ``repro/models/moe.py:114``
+rounds the combine weights to that dtype anyway, so the result is the
+same bits), and ``tp_mode``, ``moe_ep`` and ``opt_collectives``, which
+change the reference's sharding under a mesh: the port places the
+default mode's constraints (:mod:`repro_torch.sharding`), and the other
+modes wait for their multi-rank parity test (ROADMAP.md queue 1).  They
+are kept so that a
+configuration reads the same in both packages.  ``remat`` takes effect:
+the port recomputes each block in the backward pass
 (``models/transformer.py::_maybe_remat``).
 """
 

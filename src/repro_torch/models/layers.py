@@ -3,8 +3,11 @@
 The port of :mod:`repro.models.layers`.  A ``torch.Generator`` takes the
 place of a JAX key: parameters are drawn from it in a fixed order, on the
 generator's device, so a model initializes on the card without a copy.
-The sharding constraints of the JAX package have no counterpart on one
-card.
+On the ``meta`` device (:func:`repro_torch.models.api.abstract_params`)
+the helpers make empty tensors of the same shapes and dtypes and draw
+nothing.  The spec functions (``*_specs``) give each parameter's logical
+axes, and :func:`mlp` places the reference's sharding constraints
+(:mod:`repro_torch.sharding`), which act only under a mesh.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import constrain, proj
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -27,6 +32,8 @@ def trunc_normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
     fan_in = shape[0] if len(shape) >= 1 else 1
     std = (scale / max(fan_in, 1)) ** 0.5
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if x.device.type == "meta":
+        return x.to(dtype)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return x.mul_(std).to(dtype)
 
@@ -98,15 +105,33 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: Optional[int] = None):
 
 def mlp(p, x, cfg):
     """Feed-forward block: SwiGLU, or GeLU (tanh form, as ``jax.nn.gelu``)
-    with optional biases."""
+    with optional biases.  Under a mesh the hidden activation is sharded
+    over tp (megatron: a partial-sum reduction on the down projection)."""
     if cfg.mlp_type == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
-    h = x @ p["w_up"]
+        h = F.silu(proj(x, p["w_gate"])) * proj(x, p["w_up"])
+        h = constrain(h, "dp", None, "tp")
+        return proj(h, p["w_down"])
+    h = proj(x, p["w_up"])
     if "b_up" in p:
         h = h + p["b_up"]
     h = F.gelu(h, approximate="tanh")
-    y = h @ p["w_down"]
+    h = constrain(h, "dp", None, "tp")
+    y = proj(h, p["w_down"])
     if "b_down" in p:
         y = y + p["b_down"]
     return y
+
+
+def mlp_specs(cfg):
+    """Logical-axis tuples matching init_mlp's structure."""
+    if cfg.mlp_type == "swiglu":
+        return {
+            "w_gate": ("fsdp", "tp"),
+            "w_up": ("fsdp", "tp"),
+            "w_down": ("tp", "fsdp"),
+        }
+    p = {"w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp")}
+    if cfg.mlp_bias:
+        p["b_up"] = ("tp",)
+        p["b_down"] = (None,)
+    return p

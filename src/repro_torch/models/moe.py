@@ -20,12 +20,23 @@ combine, as the reference casts them (``moe.py:114``).  ``jax.lax.top_k``
 breaks ties to the lower expert index; :func:`_top_k` does the same
 (a stable descending sort), where ``torch.topk`` promises no order.
 
+The dispatch is one scatter of fixed shape into the (E, g, C) slots
+(:func:`_dispatch_rows`: a dropped pair writes into a spare expert that
+no expert reads), so nothing is read on the host and the same path runs
+on the card, on the CPU and in a traced step.  Under a mesh (DTensor
+activations: the dry run) the dispatch and the combine run on each
+rank's own groups and the experts' products are DTensor's, their hidden
+dim over tp as the reference constrains it (:func:`_sharded_rows`).
+
 Decode (:func:`moe_decode`) drops nothing: each token's chosen experts run
 with no capacity.  The reference gathers the (T, k, d, f) weights of the
 choices; the port runs each expert chosen in the step once over the step's
 tokens and weighs its output by the token's gate (0 where the token did
 not choose it): the same function, reading each chosen expert's weights
-once and copying none.
+once and copying none.  On a DTensor or a fake tensor (the dry run),
+which cannot tell the host which experts were chosen, every expert runs,
+weighed by its gate (0 for the experts no token chose): the same sum, in
+the same order, plus zeros.
 
 :func:`routing_stats` collects, for the calls inside it, the (token,
 choice) pairs routed and dropped by :func:`moe_block` and the experts
@@ -36,12 +47,15 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.common import is_fake
 from repro_torch.models.layers import dtype_of, trunc_normal
+from repro_torch.sharding import constrain, is_dtensor
 
 _STATS: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
     "moe_routing_stats", default=None)
@@ -78,6 +92,20 @@ def init_moe(gen: torch.Generator, cfg):
     }
 
 
+def moe_specs(cfg):
+    return {
+        "router": (None, None),
+        "w_gate": (None, "fsdp", "tp"),
+        "w_up": (None, "fsdp", "tp"),
+        "w_down": (None, "tp", "fsdp"),
+    }
+
+
+def _is_traced(x) -> bool:
+    """A DTensor or a fake tensor: its values are not on the host's reach."""
+    return is_dtensor(x) or is_fake(x)
+
+
 def _top_k(x: torch.Tensor, k: int):
     """The k largest along the last axis, ties to the lower index."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
@@ -92,9 +120,12 @@ def _route(router, x, k):
     return top_g, top_e
 
 
-def _experts(p, xe):
-    """SwiGLU of each expert over its own rows: xe (E, n, d) -> (E, n, d)."""
+def _experts(p, xe, hidden=None):
+    """SwiGLU of each expert over its own rows: xe (E, n, d) -> (E, n, d).
+    ``hidden``: the hidden activation's logical axes under a mesh."""
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    if hidden is not None:
+        h = constrain(h, *hidden)
     return torch.bmm(h, p["w_down"])
 
 
@@ -112,37 +143,95 @@ def dispatch(top_e, cap: int, E: int):
     return slot, slot < cap
 
 
+def _dispatch_rows(xg, top_e, cap: int, E: int):
+    """Each group's kept pairs' token rows in their experts' slots:
+    xg (g, t, d), top_e (g, t, k) -> (xe (E, g, cap, d), slot, kept).
+
+    One scatter of fixed shape, with nothing read on the host: a dropped
+    pair writes into a spare expert's first slot, which no expert reads
+    (a kept pair owns its slot alone)."""
+    g, t, k = top_e.shape
+    slot, kept = dispatch(top_e, cap, E)
+    gi = torch.arange(g, device=xg.device)[:, None, None].expand(g, t, k)
+    xe = xg.new_zeros((E + 1, g, cap, xg.shape[-1]))
+    xe[torch.where(kept, top_e, E), gi,
+       torch.where(kept, slot, 0)] = xg[:, :, None, :]
+    return xe[:E], slot, kept
+
+
+def _combine_rows(ye, top_g, top_e, slot, kept):
+    """Each pair's expert row times its gate, rounded to the experts'
+    dtype first; a dropped pair weighs 0: ye (E, g, cap, d) -> (g, t, d)."""
+    g, t, k = top_e.shape
+    gi = torch.arange(g, device=ye.device)[:, None, None].expand(g, t, k)
+    rows = ye[top_e, gi, torch.clamp(slot, max=ye.shape[2] - 1)]
+    w = torch.where(kept, top_g, 0.0).to(ye.dtype)
+    y = (rows.to(torch.float32) * w.to(torch.float32)[..., None]).sum(2)
+    return y.to(ye.dtype)
+
+
+def _sharded_rows(p, xg, top_g, top_e, cap: int, E: int):
+    """:func:`_dispatch_rows`, the experts and :func:`_combine_rows` on
+    DTensors (under a mesh): the dispatch and the combine run on each
+    rank's own groups (``local_map``; DTensor has no sharding rule for
+    the scatter and the gather by index), the experts' products on the
+    slots by DTensor, their hidden dim over tp as the reference
+    constrains it.  The combine is linear in the expert rows, so a
+    partial sum over the model axis passes through it and is reduced on
+    the (g, t, d) output."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xg.device_mesh
+    pl = list(xg.placements)              # groups over dp, dim 0
+    top_g, top_e = (a.redistribute(mesh, pl) for a in (top_g, top_e))
+    slots = [Shard(1) if q == Shard(0) else q for q in pl]
+    xe, slot, kept = local_map(
+        functools.partial(_dispatch_rows, cap=cap, E=E),
+        out_placements=(slots, pl, pl), in_placements=(pl, pl),
+        redistribute_inputs=False)(xg, top_e)
+    g, d = xe.shape[1], xe.shape[3]
+    ye = _experts(p, xe.reshape(E, g * cap, d),
+                  hidden=(None, "dp", "tp")).reshape(E, g, cap, d)
+    # the groups split as the tokens are; an expert or slot split gathered
+    want = [Shard(1) if q == Shard(0) else
+            Replicate() if isinstance(r, Shard) and r.dim != 3 else r
+            for q, r in zip(pl, ye.placements)]
+    ye = ye.redistribute(mesh, want)
+    out = [Shard(0) if r == Shard(1) else Shard(2) if r == Shard(3) else r
+           for r in want]
+    y = local_map(_combine_rows, out_placements=out,
+                  in_placements=(want, pl, pl, pl, pl),
+                  redistribute_inputs=False)(ye, top_g, top_e, slot, kept)
+    return constrain(y, "dp", None, None), kept
+
+
 def moe_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  Top-k dropped dispatch."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     T = B * S
-    xt = x.reshape(T, d)
+    xt = constrain(x, "dp", None, None).reshape(T, d)
     group = min(cfg.moe_group_size, T)
     n_groups = -(-T // group)
     pad = n_groups * group - T
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
-    xg = xt.reshape(n_groups, group, d)
+    # groups over dp alone, in the backward pass too (under a mesh DTensor
+    # may shard the gradient's groups over the model axis as well, which
+    # the token views cannot follow)
+    xg = constrain(xt.reshape(n_groups, group, d), "dp", None, None)
     cap = max(1, int(group * k * cfg.capacity_factor / E))
 
     top_g, top_e = _route(p["router"], xg, k)          # (g, t, k)
-    slot, kept = dispatch(top_e, cap, E)
-    gi = torch.arange(n_groups, device=x.device)[:, None, None].expand(
-        n_groups, group, k)
-    ti = torch.arange(group, device=x.device)[None, :, None].expand(
-        n_groups, group, k)
-    # dispatch: each kept pair's token row into its own slot
-    xe = x.new_zeros((E, n_groups, cap, d))
-    xe[top_e[kept], gi[kept], slot[kept]] = xg[gi[kept], ti[kept]]
-    ye = _experts(p, xe.reshape(E, n_groups * cap, d)).reshape(
-        E, n_groups, cap, d)
-    # combine: each pair's expert row times its gate, rounded to the
-    # experts' dtype first; a dropped pair weighs 0
-    rows = ye[top_e, gi, torch.clamp(slot, max=cap - 1)]   # (g, t, k, d)
-    w = torch.where(kept, top_g, 0.0).to(ye.dtype)
-    y = (rows.to(torch.float32) * w.to(torch.float32)[..., None]).sum(2)
-    y = y.to(ye.dtype).reshape(n_groups * group, d)[:T]
+    if is_dtensor(xg):
+        y, kept = _sharded_rows(p, xg, top_g, top_e, cap, E)
+    else:
+        xe, slot, kept = _dispatch_rows(xg, top_e, cap, E)
+        ye = _experts(p, xe.reshape(E, n_groups * cap, d)).reshape(
+            E, n_groups, cap, d)
+        y = _combine_rows(ye, top_g, top_e, slot, kept)
+    y = y.reshape(n_groups * group, d)[:T]
 
     stats = _STATS.get()
     if stats is not None:
@@ -167,14 +256,27 @@ def moe_decode(p, x: torch.Tensor, cfg) -> torch.Tensor:
     top_g, top_e = _route(p["router"], xt, k)          # (T, k)
     # gate of each (token, expert), rounded to the experts' dtype as the
     # reference rounds the top-k weights before its combine
-    gates = torch.zeros((xt.shape[0], E), dtype=torch.float32,
-                        device=x.device)
-    gates.scatter_(1, top_e, top_g.to(xt.dtype).to(torch.float32))
-    chosen = torch.unique(top_e).tolist()
+    g = top_g.to(xt.dtype).to(torch.float32)
+    traced = _is_traced(x)
+    if traced:
+        # no host read: every expert, out of place (a token's k experts
+        # are distinct, so its gate row has one term an expert)
+        hit = top_e[..., None] == torch.arange(E, device=x.device)
+        gates = torch.sum(hit.to(torch.float32) * g[..., None], dim=1)
+        chosen = range(E)
+    else:
+        gates = torch.zeros((xt.shape[0], E), dtype=torch.float32,
+                            device=x.device)
+        gates.scatter_(1, top_e, g)
+        chosen = torch.unique(top_e).tolist()
     y = torch.zeros((xt.shape[0], d), dtype=torch.float32, device=x.device)
     for e in chosen:
         h = F.silu(xt @ p["w_gate"][e]) * (xt @ p["w_up"][e])
-        y += (h @ p["w_down"][e]).to(torch.float32) * gates[:, e, None]
+        term = (h @ p["w_down"][e]).to(torch.float32) * gates[:, e, None]
+        if traced:      # a DTensor's zeros above are a plain tensor's
+            y = y + term
+        else:
+            y += term
     stats = _STATS.get()
     if stats is not None:
         stats["decode_calls"] += 1

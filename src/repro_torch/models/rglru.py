@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dtype_of, trunc_normal, zeros
+from repro_torch.sharding import proj
 
 C_CONST = 8.0
 CONV_WIDTH = 4
@@ -57,6 +58,21 @@ def init_rglru_block(gen: torch.Generator, cfg):
         "bx": zeros((w,), torch.float32, gen),
         "lam": torch.log(a / (1.0 - a)),
         "w_out": trunc_normal(gen, (w, d), 1.0, dt),
+    }
+
+
+def rglru_specs(cfg):
+    return {
+        "w_gate": ("fsdp", "tp"),
+        "w_rec": ("fsdp", "tp"),
+        "conv_w": (None, "tp"),
+        "conv_b": ("tp",),
+        "wa": ("fsdp", "tp"),
+        "ba": ("tp",),
+        "wx": ("fsdp", "tp"),
+        "bx": ("tp",),
+        "lam": ("tp",),
+        "w_out": ("tp", "fsdp"),
     }
 
 
@@ -109,21 +125,21 @@ def _rglru_scan(x, a_t, h0=None):
 def rglru_block(p, u, cfg, cache: LRUCache | None = None):
     """u: (B, T, d) -> (B, T, d) (and the cache advanced by T when one is
     given, else None)."""
-    gate = F.gelu(u @ p["w_gate"], approximate="tanh")
-    x = u @ p["w_rec"]
+    gate = F.gelu(proj(u, p["w_gate"]), approximate="tanh")
+    x = proj(u, p["w_rec"])
     conv_init = cache.conv if cache is not None else None
     x, conv_state = _causal_conv(x, p["conv_w"], p["conv_b"], conv_init)
 
     xf = x.to(torch.float32)
-    r = torch.sigmoid(xf @ p["wa"].to(torch.float32) + p["ba"])
-    i = torch.sigmoid(xf @ p["wx"].to(torch.float32) + p["bx"])
+    r = torch.sigmoid(proj(xf, p["wa"].to(torch.float32)) + p["ba"])
+    i = torch.sigmoid(proj(xf, p["wx"].to(torch.float32)) + p["bx"])
     log_a = -C_CONST * r * F.softplus(-p["lam"])  # log sigmoid(lam)^(c r)
     a_t = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=1e-12)) * (i * xf)
 
     h0 = cache.h if cache is not None else None
     h = _rglru_scan(gated_x, a_t, h0)
-    y = (h.to(u.dtype) * gate) @ p["w_out"]
+    y = proj(h.to(u.dtype) * gate, p["w_out"])
     if cache is not None:
         return y, LRUCache(conv=conv_state, h=h[:, -1].to(torch.float32),
                            pos=cache.pos + u.shape[1])

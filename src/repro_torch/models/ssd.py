@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dtype_of, rms_norm, trunc_normal, zeros
+from repro_torch.sharding import constrain, proj
 
 
 class SSMCache(NamedTuple):
@@ -53,6 +54,19 @@ def init_ssd(gen: torch.Generator, cfg):
         "D": torch.ones((H,), dtype=torch.float32, device=dev),
         "norm_w": zeros((di,), dt, gen),
         "out_proj": trunc_normal(gen, (di, d), 1.0, dt),
+    }
+
+
+def ssd_specs(cfg):
+    return {
+        "in_proj": ("fsdp", "tp"),
+        "conv_w": (None, "tp"),
+        "conv_b": ("tp",),
+        "A_log": ("tp",),
+        "dt_bias": ("tp",),
+        "D": ("tp",),
+        "norm_w": ("tp",),
+        "out_proj": ("tp", "fsdp"),
     }
 
 
@@ -144,7 +158,7 @@ def ssd_layer(p, u, cfg, cache: SSMCache | None = None):
     di = cfg.d_inner
     GN = cfg.ssm_groups * cfg.ssm_state
 
-    z, x, Bm, Cm, dt_raw = _split_proj(cfg, u @ p["in_proj"])
+    z, x, Bm, Cm, dt_raw = _split_proj(cfg, proj(u, p["in_proj"]))
     xbc = torch.cat([x, Bm, Cm], dim=-1)
     conv_init = cache.conv if cache is not None else None
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_init)
@@ -162,9 +176,10 @@ def ssd_layer(p, u, cfg, cache: SSMCache | None = None):
     y, h_fin = ssd_chunked(cfg, xh, Bh, Ch, dt, A, init_state)
     y = y + xh.to(torch.float32) * p["D"][None, None, :, None]
     y = y.reshape(Bsz, T, di).to(u.dtype)
+    y = constrain(y, "dp", None, "tp")
     # gated RMSNorm (Mamba-2's "norm before gate" variant)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = proj(y, p["out_proj"])
     if cache is not None:
         return out, SSMCache(conv=conv_state, state=h_fin,
                              pos=cache.pos + T)

@@ -8,8 +8,14 @@ full-sequence forward (:func:`decoder_forward`, :func:`encode_audio`,
 :func:`encdec_forward`) is recomputed in the backward pass instead of
 keeping its activations, where the reference wraps it in
 ``jax.checkpoint``; this applies only while gradients are taken.  The
-sharding constraints have no counterpart on one card
-(:func:`check_family` refuses those fields away from their defaults).
+reference's sharding constraints sit at its places
+(:func:`repro_torch.sharding.constrain`): under a mesh they redistribute
+the DTensor activations, without one they return their input, so that a
+model on one card computes the same bits with or without them.  The
+``*_specs`` functions give each parameter's logical axes, one spec a
+parameter leaf: the reference's stacked spec without its leading
+``None`` (two for the hybrid's recurrent blocks and the vlm's self
+blocks).
 
 Layer layouts, as in the reference:
 
@@ -52,8 +58,9 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.config import NO_EFFECT, ModelConfig
 from repro_torch.models.layers import (
-    dtype_of, init_mlp, mlp, rms_norm, trunc_normal, zeros,
+    dtype_of, init_mlp, mlp, mlp_specs, rms_norm, trunc_normal, zeros,
 )
+from repro_torch.sharding import constrain, embed_lookup, proj
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
@@ -74,7 +81,7 @@ def check_family(cfg) -> None:
     if moved:
         raise ValueError(
             f"repro_torch: {moved} would have no effect here: these fields "
-            f"only shape JAX compilation and sharding (models/config.py); "
+            f"only shape JAX compilation (models/config.py); "
             f"leave them at their defaults")
 
 
@@ -92,6 +99,25 @@ def vlm_layout(cfg):
     return cfg.n_layers // cfg.cross_every, cfg.cross_every
 
 
+def _norm(x, w, cfg):
+    """RMSNorm of a full-sequence activation, the input of a sub-block's
+    projections.  Under a mesh the result is gathered over the sequence
+    (``("dp", None, None)``, the Megatron layout; the reference pins it
+    under ``opt_collectives`` and GSPMD picks it otherwise).  DTensor
+    would otherwise fold the batch and sequence shards of a projection's
+    input into one strided shard, which a fake trace cannot follow.
+    Without a mesh: the norm."""
+    return constrain(rms_norm(x, w, cfg.norm_eps), "dp", None, None)
+
+
+def _out(h):
+    """A sub-block's output under a mesh: sequence-sharded before the
+    residual add (its partial sums reduce-scattered; in the backward pass
+    its gradient gathered over the sequence before the sub-block's
+    projections).  Without a mesh: ``h``."""
+    return constrain(h, "dp", "sp", None)
+
+
 # ============================================================= decoder blocks
 def init_decoder_block(gen: torch.Generator, cfg):
     dt = dtype_of(cfg.dtype)
@@ -107,18 +133,38 @@ def init_decoder_block(gen: torch.Generator, cfg):
     return p
 
 
+def decoder_block_specs(cfg):
+    p = {
+        "attn_norm": (None,),
+        "attn": att.attn_specs(cfg),
+        "mlp_norm": (None,),
+    }
+    if cfg.n_experts:
+        p["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        p["mlp"] = mlp_specs(cfg)
+    return p
+
+
 def _ffn(bp, h, cfg):
     return moe_mod.moe_block(bp["moe"], h, cfg) if cfg.n_experts \
         else mlp(bp["mlp"], h, cfg)
 
 
 def decoder_block(bp, x, cfg, positions, window=None):
-    """One pre-norm decoder block (full-sequence path)."""
-    h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
-    x = x + att.multihead_attention(bp["attn"], h, cfg, positions=positions,
-                                    window=window)
-    h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(bp, h, cfg)
+    """One pre-norm decoder block (full-sequence path).
+
+    Under a mesh the post-norm activation is gathered over the sequence
+    (:func:`_norm`) and each sub-block's output is constrained to the
+    sequence-sharded layout before the residual add (:func:`_out`), so
+    that its partial sums are reduce-scattered: the reference's
+    ``opt_collectives`` boundaries, which the port keeps."""
+    h = _norm(x, bp["attn_norm"], cfg)
+    h = att.multihead_attention(bp["attn"], h, cfg, positions=positions,
+                                window=window)
+    x = constrain(x + _out(h), "dp", "sp", None)
+    h = _norm(x, bp["mlp_norm"], cfg)
+    return constrain(x + _out(_ffn(bp, h, cfg)), "dp", "sp", None)
 
 
 def decoder_block_decode(bp, x_t, cache, cfg, window=None, inplace=False):
@@ -134,14 +180,14 @@ def decoder_block_decode(bp, x_t, cache, cfg, window=None, inplace=False):
 
 def decoder_block_prefill(bp, x, cfg, positions, window=None):
     """Decoder block that also returns (k, v) for cache construction."""
-    h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+    h = _norm(x, bp["attn_norm"], cfg)
     h, (k, v) = att.multihead_attention(
         bp["attn"], h, cfg, positions=positions, window=window,
         return_kv=True,
     )
-    x = x + h
-    h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(bp, h, cfg), (k, v)
+    x = constrain(x + _out(h), "dp", "sp", None)
+    h = _norm(x, bp["mlp_norm"], cfg)
+    return constrain(x + _out(_ffn(bp, h, cfg)), "dp", "sp", None), (k, v)
 
 
 # ------------------------------------------------------------- cross blocks
@@ -153,17 +199,25 @@ def init_cross_block(gen: torch.Generator, cfg):
     }
 
 
+def cross_block_specs(cfg):
+    return {
+        "norm": (None,),
+        "attn": att.attn_specs(cfg, cross=True),
+        "gate": (),
+    }
+
+
 def cross_block(bp, x, memory, cfg, return_kv=False):
     """Gated cross-attention over ``memory`` (full-sequence path);
     ``tanh(gate)`` is cast to the activations' dtype before the multiply,
     as in the reference.  With ``return_kv`` also the memory's keys and
     values as the decode cache holds them."""
-    h = rms_norm(x, bp["norm"], cfg.norm_eps)
+    h = _norm(x, bp["norm"], cfg)
     h, (k, v) = att.multihead_attention(
         bp["attn"], h, cfg, kv_x=memory, causal=False, use_rope=False,
         impl="einsum", return_kv=True,
     )
-    x = x + torch.tanh(bp["gate"]).to(x.dtype) * h
+    x = x + torch.tanh(bp["gate"]).to(x.dtype) * _out(h)
     if return_kv:
         return x, att.memory_kv(k, v)
     return x
@@ -199,12 +253,22 @@ def init_rec_block(gen: torch.Generator, cfg):
     }
 
 
+def rec_block_specs(cfg):
+    return {
+        "rec_norm": (None,),
+        "rec": rglru_mod.rglru_specs(cfg),
+        "mlp_norm": (None,),
+        "mlp": mlp_specs(cfg),
+    }
+
+
 def rec_block(bp, x, cfg, cache=None):
-    h = rms_norm(x, bp["rec_norm"], cfg.norm_eps)
+    h = _norm(x, bp["rec_norm"], cfg)
     h, cache = rglru_mod.rglru_block(bp["rec"], h, cfg, cache)
-    x = x + h
-    h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-    return x + mlp(bp["mlp"], h, cfg), cache
+    x = x + _out(h)
+    h = _norm(x, bp["mlp_norm"], cfg)
+    return constrain(x + _out(mlp(bp["mlp"], h, cfg)), "dp", "sp",
+                     None), cache
 
 
 # ---------------------------------------------------------------- ssm blocks
@@ -215,10 +279,14 @@ def init_ssm_block(gen: torch.Generator, cfg):
     }
 
 
+def ssm_block_specs(cfg):
+    return {"norm": (None,), "ssd": ssd_mod.ssd_specs(cfg)}
+
+
 def ssm_block(bp, x, cfg, cache=None):
-    h = rms_norm(x, bp["norm"], cfg.norm_eps)
+    h = _norm(x, bp["norm"], cfg)
     h, cache = ssd_mod.ssd_layer(bp["ssd"], h, cfg, cache)
-    return x + h, cache
+    return constrain(x + _out(h), "dp", "sp", None), cache
 
 
 # ================================================================== assembly
@@ -269,6 +337,38 @@ def init_decoder(gen: torch.Generator, cfg) -> Decoder:
                    vision_proj)
 
 
+def decoder_specs(cfg) -> Decoder:
+    """Logical-axis spec tree matching :func:`init_decoder`, one tuple a
+    parameter leaf."""
+    check_family(cfg)
+    tail = cross = vision_proj = None
+    if cfg.family == "ssm":
+        blocks = [ssm_block_specs(cfg) for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        n_super, n_rec, n_tail = hybrid_layout(cfg)
+        blocks = [{"recs": [rec_block_specs(cfg) for _ in range(n_rec)],
+                   "attn": decoder_block_specs(cfg)}
+                  for _ in range(n_super)]
+        if n_tail:
+            tail = [rec_block_specs(cfg) for _ in range(n_tail)]
+    elif cfg.family == "vlm":
+        n_groups, per = vlm_layout(cfg)
+        blocks = [decoder_block_specs(cfg) for _ in range(n_groups * per)]
+        cross = [cross_block_specs(cfg) for _ in range(n_groups)]
+        vision_proj = ("fsdp", "tp")
+    else:
+        blocks = [decoder_block_specs(cfg) for _ in range(cfg.n_layers)]
+    return Decoder(
+        embed=("tp", "fsdp"),
+        blocks=blocks,
+        final_norm=(None,),
+        lm_head=None if cfg.tie_embeddings else ("fsdp", "tp"),
+        tail=tail,
+        cross=cross,
+        vision_proj=vision_proj,
+    )
+
+
 def _maybe_remat(fn, cfg):
     """``fn(params, x, ...)``, recomputed in the backward pass (its
     activations not kept) when ``cfg.remat`` is set and grad mode is on:
@@ -286,9 +386,9 @@ def _maybe_remat(fn, cfg):
 
 
 def _lm_logits(params: Decoder, x, cfg):
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = _norm(x, params.final_norm, cfg)
     head = params.lm_head if params.lm_head is not None else params.embed.T
-    return x @ head
+    return constrain(proj(x, head), "dp", None, "tp")
 
 
 def _positions(B, S, device):
@@ -301,7 +401,8 @@ def _vision_memory(params: Decoder, cfg, vision_embeds):
         raise ValueError(
             f"repro_torch: {cfg.name} (vlm) needs batch['vision'], "
             f"(B, {cfg.vision_tokens}, {cfg.vision_dim}) embeddings")
-    return vision_embeds @ params.vision_proj
+    return constrain(proj(vision_embeds, params.vision_proj), "dp", None,
+                     None)
 
 
 def _groups(params: Decoder, cfg):
@@ -317,7 +418,7 @@ def decoder_forward(params: Decoder, cfg, tokens: torch.Tensor,
     (B, vision_tokens, vision_dim): the vlm's stub patch embeddings."""
     check_family(cfg)
     B, S = tokens.shape
-    x = params.embed[tokens]
+    x = constrain(embed_lookup(params.embed, tokens), "dp", "sp", None)
     positions = _positions(B, S, tokens.device)
     if cfg.family == "ssm":
         block = _maybe_remat(lambda bp, x_: ssm_block(bp, x_, cfg)[0], cfg)
@@ -443,7 +544,7 @@ def decoder_decode_step(params: Decoder, cfg, token: torch.Tensor,
     raises."""
     check_family(cfg)
     _check_live(cache)
-    x = params.embed[token][:, None, :]  # (B, 1, d)
+    x = embed_lookup(params.embed, token)[:, None, :]  # (B, 1, d)
     if cfg.family == "ssm":
         kv2 = []
         for bp, c in zip(params.blocks, cache.self_kv):
@@ -497,7 +598,7 @@ def decoder_prefill(params: Decoder, cfg, tokens: torch.Tensor,
     check_family(cfg)
     B, S = tokens.shape
     max_len = max_len or S
-    x = params.embed[tokens]
+    x = constrain(embed_lookup(params.embed, tokens), "dp", "sp", None)
     positions = _positions(B, S, tokens.device)
     cross = None
     # the recurrent layers start from the zero state, as the reference's
@@ -601,43 +702,73 @@ def init_encdec(gen: torch.Generator, cfg) -> EncDec:
     )
 
 
+def encdec_specs(cfg) -> EncDec:
+    """Logical-axis spec tree matching :func:`init_encdec`."""
+    check_family(cfg)
+    enc = {
+        "attn_norm": (None,),
+        "attn": att.attn_specs(cfg),
+        "mlp_norm": (None,),
+        "mlp": mlp_specs(cfg),
+    }
+    dec = {
+        "attn_norm": (None,),
+        "attn": att.attn_specs(cfg),
+        "cross_norm": (None,),
+        "cross": att.attn_specs(cfg, cross=True),
+        "mlp_norm": (None,),
+        "mlp": mlp_specs(cfg),
+    }
+    return EncDec(
+        audio_proj=("fsdp", "tp"),
+        enc_blocks=[dict(enc) for _ in range(cfg.encoder_layers)],
+        enc_norm=(None,),
+        embed=("tp", "fsdp"),
+        dec_blocks=[dict(dec) for _ in range(cfg.n_layers)],
+        final_norm=(None,),
+        lm_head=("fsdp", "tp"),
+    )
+
+
 def encode_audio(params: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T_frames, audio_dim) stub embeddings -> memory (B, T, d).
     Bidirectional self-attention with RoPE, through ``cfg.attn_impl``
     (under ``"flash"`` the kernel's non-causal mode)."""
     check_family(cfg)
-    x = frames @ params.audio_proj
+    x = constrain(proj(frames, params.audio_proj), "dp", "sp", None)
     positions = _positions(x.shape[0], x.shape[1], x.device)
 
     def block(bp, x_):
-        h = rms_norm(x_, bp["attn_norm"], cfg.norm_eps)
-        x_ = x_ + att.multihead_attention(bp["attn"], h, cfg,
-                                          positions=positions, causal=False)
-        h = rms_norm(x_, bp["mlp_norm"], cfg.norm_eps)
-        return x_ + mlp(bp["mlp"], h, cfg)
+        h = _norm(x_, bp["attn_norm"], cfg)
+        x_ = x_ + _out(att.multihead_attention(
+            bp["attn"], h, cfg, positions=positions, causal=False))
+        h = _norm(x_, bp["mlp_norm"], cfg)
+        return constrain(x_ + _out(mlp(bp["mlp"], h, cfg)), "dp", "sp",
+                         None)
 
     block = _maybe_remat(block, cfg)
     for bp in params.enc_blocks:
         x = block(bp, x)
-    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+    return _norm(x, params.enc_norm, cfg)
 
 
 def _dec_block(bp, x, memory, cfg, positions):
     """One encoder-decoder decoder block (full-sequence path): causal
     self-attention, cross-attention over ``memory``, MLP.  Returns the
     output, the self-attention's (k, v) and the memory's (k, v)."""
-    h = rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+    h = _norm(x, bp["attn_norm"], cfg)
     h, self_kv = att.multihead_attention(
         bp["attn"], h, cfg, positions=positions, causal=True,
         return_kv=True)
-    x = x + h
-    h = rms_norm(x, bp["cross_norm"], cfg.norm_eps)
+    x = x + _out(h)
+    h = _norm(x, bp["cross_norm"], cfg)
     h, mem_kv = att.multihead_attention(
         bp["cross"], h, cfg, kv_x=memory, causal=False, use_rope=False,
         impl="einsum", return_kv=True)
-    x = x + h
-    h = rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-    return x + mlp(bp["mlp"], h, cfg), self_kv, mem_kv
+    x = x + _out(h)
+    h = _norm(x, bp["mlp_norm"], cfg)
+    return (constrain(x + _out(mlp(bp["mlp"], h, cfg)), "dp", "sp", None),
+            self_kv, mem_kv)
 
 
 def encdec_forward(params: EncDec, cfg, frames: torch.Tensor,
@@ -645,7 +776,7 @@ def encdec_forward(params: EncDec, cfg, frames: torch.Tensor,
     """Teacher-forced decoder logits (B, S, V)."""
     memory = encode_audio(params, cfg, frames)
     B, S = tokens.shape
-    x = params.embed[tokens]
+    x = constrain(embed_lookup(params.embed, tokens), "dp", "sp", None)
     positions = _positions(B, S, tokens.device)
     block = _maybe_remat(
         lambda bp, x_, memory_: _dec_block(bp, x_, memory_, cfg,
@@ -676,7 +807,7 @@ def encdec_prefill(params: EncDec, cfg, frames: torch.Tensor,
     memory = encode_audio(params, cfg, frames)
     B, S = tokens.shape
     max_len = max_len or S
-    x = params.embed[tokens]
+    x = embed_lookup(params.embed, tokens)
     positions = _positions(B, S, tokens.device)
     self_kv, cross_k, cross_v = [], [], []
     for bp in params.dec_blocks:
@@ -717,7 +848,7 @@ def encdec_decode_step(params: EncDec, cfg, token: torch.Tensor,
     :func:`decoder_decode_step`."""
     check_family(cfg)
     _check_live(cache)
-    x = params.embed[token][:, None, :]
+    x = embed_lookup(params.embed, token)[:, None, :]
     kv2 = []
     for bp, c, mk, mv in zip(params.dec_blocks, cache.self_kv,
                              cache.cross_k, cache.cross_v):

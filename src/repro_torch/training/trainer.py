@@ -89,15 +89,33 @@ def state_from_params(params, compression: bool = False) -> TrainState:
 
 
 def _split_microbatches(batch: dict, n: int) -> list:
+    """``n`` microbatches of consecutive rows.  A DTensor batch (under a
+    mesh) is split rank by rank: microbatch i holds the i-th slice of every
+    rank's rows, so that each stays sharded over dp as the batch was (the
+    same rows in all, the same sum of gradients up to its order)."""
+    from repro_torch.sharding import is_dtensor
+
     def resh(x):
         B = x.shape[0]
         if B % n:
             raise ValueError(f"batch {B} is not a multiple of the {n} "
                              f"microbatches")
+        if is_dtensor(x):
+            return _split_local(x, n)
         return x.reshape(n, B // n, *x.shape[1:])
 
     split = {k: resh(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _split_local(x, n: int) -> list:
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(x.placements)
+    return [local_map(lambda xl, i=i: xl.reshape(
+        n, xl.shape[0] // n, *xl.shape[1:])[i],
+        out_placements=pl, in_placements=(pl,),
+        redistribute_inputs=False)(x) for i in range(n)]
 
 
 @contextlib.contextmanager
@@ -149,8 +167,7 @@ def make_train_step(
     def _train_step(state: TrainState, batch: dict):
         """One step that writes into ``state``'s tensors."""
         if n_microbatches > 1:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device)
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
                     for p in leaves(state.params)]
             lsum = None
             for mb in _split_microbatches(batch, n_microbatches):

@@ -34,6 +34,7 @@ from repro_torch import api as tapi
 from repro_torch.core import backend as tbe
 from repro_torch.core.batch_greedy import batch_rb_greedy
 from repro_torch.core.greedy import STOP_FLOOR, STOP_RANK, STOP_TAU, rb_greedy
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
 DTYPES = (np.float32, np.complex64, np.float64, np.complex128)

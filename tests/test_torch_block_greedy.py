@@ -19,6 +19,7 @@ from repro.core import block_greedy as jb
 from repro.core import greedy as jg
 from repro_torch.core import block_greedy as tb
 from repro_torch.core import greedy as tg
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOW = (np.float32, np.complex64)
 

@@ -235,12 +235,12 @@ def test_world1_checkpoint_is_the_reference_tree(world1, tmp_path):
 
 
 def test_world1_mesh_rules(world1):
-    """chunk >= 1; NCCL needs the card; the host and production meshes
+    """chunk >= 1; NCCL needs the card; the host and rank meshes
     and the dp/tp sizes read from their names; the layout of the state's
     leaves."""
     from repro_torch.compat import make_auto_mesh
     from repro_torch.launch.mesh import (
-        dp_size, init_ranks, make_host_mesh, make_production_mesh, tp_size,
+        dp_size, init_ranks, make_host_mesh, make_rank_mesh, tp_size,
     )
 
     mesh, _ = world1
@@ -253,7 +253,7 @@ def test_world1_mesh_rules(world1):
     assert dp_size(dm) == 1 and tp_size(dm) == 1 and td.is_writer(dm)
     assert make_host_mesh(device_type=CPU).mesh.shape == (1, 1)
     assert make_host_mesh(1, ("cols",), CPU).mesh_dim_names == ("cols",)
-    pm = make_production_mesh(CPU)
+    pm = make_rank_mesh(CPU)
     assert pm.mesh_dim_names == ("data", "model")
     assert pm.mesh.shape == (1, 1)
     assert dp_size(pm) == 1 and tp_size(pm) == 1

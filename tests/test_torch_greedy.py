@@ -19,6 +19,7 @@ from repro_torch.core import greedy as tg
 from repro_torch.core.errors import (
     orthogonality_defect, per_column_errors, proj_error_fro, proj_error_max,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DTYPES = [np.float32, np.complex64, np.float64, np.complex128]
 

@@ -37,6 +37,7 @@ from repro_torch.kernels.imgs_project import ops as ip_ops
 from repro_torch.kernels.imgs_project.ref import imgs_project_ref
 from repro_torch.kernels.roq_apply import ops as ra_ops
 from repro_torch.kernels.taylorf2 import ops as tf_ops
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOW = [np.float32, np.complex64]
 HIGH = [np.float64, np.complex128]

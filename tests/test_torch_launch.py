@@ -5,13 +5,13 @@ distributed example runs in test_torch_distributed.py's group of 4
 ranks.)"""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
@@ -49,12 +49,19 @@ def test_gw_greedy_config_is_the_reference_one():
         dataclasses.asdict(jcfg.reduced())
 
 
-def test_reduce_dryrun_names_item_9(monkeypatch):
-    from repro_torch.launch import reduce
-
-    monkeypatch.setenv("REPRO_DRYRUN", "1")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        reduce.main([])
+def test_reduce_dryrun_names_item_9(tmp_path):
+    """ROADMAP queue 1 item 9's dry run: REPRO_DRYRUN traces one greedy
+    step on the two-pod mesh of a fake world (a subprocess: it joins a
+    process group) and writes its record."""
+    env = dict(os.environ, PYTHONPATH=SRC, REPRO_DRYRUN="1")
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.reduce", "--mesh",
+         "multi", "--device", "cpu", "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    rec = json.loads((tmp_path / "gw_greedy__multi.json").read_text())
+    assert rec["devices"] == 512 and rec["mesh"] == "multi"
+    assert rec["per_device_cost"]["flops"] >= rec["useful_flops_per_device"]
 
 
 def _torchrun(out, chunk):

@@ -27,6 +27,7 @@ from repro.models import layers as jax_layers
 from repro_torch.configs import ARCHS, get_reduced
 from repro_torch.models import api, layers
 from repro_torch.models.convert import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL = 2e-5
 PROMPT = 80          # 2.5 chunks of 32 for the chunked path; ragged tiles

@@ -29,6 +29,7 @@ from conftest import dtype_tol, make_smooth_matrix
 import repro.api as japi
 import repro_torch.api as tapi
 from repro_torch.core.errors import proj_error_2norm, proj_error_max
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the packages' ``core`` export functions under some modules' names (``pod``,
 # ``reconstruction``), so the modules are taken from the import system

@@ -49,6 +49,7 @@ from repro_torch.data import (
 from repro_torch.gw import chirp_grid, frequency_grid
 from repro_torch.kernels.sketch_omega import ops as so_ops
 from repro_torch.kernels.sketch_omega import ref as so_ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
 SEEDS = [0, 7, 2 ** 40 + 3]

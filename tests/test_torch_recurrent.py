@@ -28,6 +28,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.models import api, rglru, ssd
 from test_torch_models import _close, _tokens
 import _torch_lm as lm
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAMBA = "mamba2-780m"
 GEMMA = "recurrentgemma-9b"

@@ -31,6 +31,7 @@ from repro_torch.core.block_greedy import _rb_greedy_block_impl
 from repro_torch.core.greedy import rb_greedy
 from repro_torch.core.streaming import rb_greedy_streamed
 from repro_torch.gw import chirp_grid, frequency_grid
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
 TAU = 1e-3

@@ -43,6 +43,7 @@ from repro_torch.data import (
     WaveformProvider, as_provider, create_snapshot_npy, write_snapshot_npy,
 )
 from repro_torch.gw import chirp_grid, frequency_grid
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
 M_COLS = 120  # make_smooth_matrix's M

@@ -16,15 +16,18 @@ import sys
 from pathlib import Path
 
 import numpy as np
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
-COMMON = ["--arch", "stablelm-3b", "--reduced", "--steps", "30",
-          "--seq", "32", "--batch", "4", "--ckpt-every", "10",
-          "--log-every", "30", "--device", "cpu"]
+COMMON = ["--arch", "stablelm-3b", "--reduced", "--steps", "12",
+          "--seq", "16", "--batch", "4", "--ckpt-every", "4",
+          "--log-every", "12", "--device", "cpu"]
 
 
 def _run_train(args, check=True):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread a launcher, as in-process tests take
+    # (_torch_threads.py): the tier-1 run's workers share the host
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train"] + args,
         env=env, capture_output=True, text=True, timeout=300)
@@ -36,19 +39,19 @@ def _run_train(args, check=True):
 def test_crash_restart_bit_identical(tmp_path):
     ref_dir, ft_dir = tmp_path / "ref", tmp_path / "ft"
     _run_train(COMMON + ["--ckpt-dir", str(ref_dir)])
-    p = _run_train(COMMON + ["--ckpt-dir", str(ft_dir), "--crash-at", "17"],
+    p = _run_train(COMMON + ["--ckpt-dir", str(ft_dir), "--crash-at", "7"],
                    check=False)
     assert p.returncode == 42, p.stderr[-2000:]
-    assert "exiting hard at step 17" in p.stdout
-    # the step-10 save is written on a thread while steps 11-17 run
-    saved = os.path.isdir(ft_dir / "step_00000010")
-    assert "step_00000020" not in os.listdir(ft_dir)
+    assert "exiting hard at step 7" in p.stdout
+    # the step-4 save is written on a thread while steps 5-7 run
+    saved = os.path.isdir(ft_dir / "step_00000004")
+    assert "step_00000008" not in os.listdir(ft_dir)
     p = _run_train(COMMON + ["--ckpt-dir", str(ft_dir)])
-    assert ("restored checkpoint at step 10" in p.stdout) == saved
+    assert ("restored checkpoint at step 4" in p.stdout) == saved
 
     ref_step = sorted(os.listdir(ref_dir))[-1]
     ft_step = sorted(os.listdir(ft_dir))[-1]
-    assert ref_step == ft_step == "step_00000030"
+    assert ref_step == ft_step == "step_00000012"
     names = sorted(os.listdir(ref_dir / ref_step))
     assert names == sorted(os.listdir(ft_dir / ft_step))
     assert "params__embed.npy" in names and "opt__v__lm_head.npy" in names

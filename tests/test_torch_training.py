@@ -50,6 +50,7 @@ from repro_torch.models.convert import params_to_numpy
 from repro_torch.tree import leaves, tree_map
 from repro_torch.training import make_train_step, train_state_init
 from repro_torch.training.trainer import state_from_params, value_and_grad
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL = 2e-5
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -249,9 +250,9 @@ def test_training_reduces_loss(cfg):
     state = train_state_init(cfg, 0, device="cpu")
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32,
                            global_batch=8, device="cpu")
-    step = make_train_step(cfg, base_lr=1e-3, warmup=5, total_steps=60)
+    step = make_train_step(cfg, base_lr=1e-3, warmup=5, total_steps=30)
     losses = []
-    for i in range(60):
+    for i in range(30):
         state, m = step(state, data.batch(i))
         losses.append(float(m["loss"]))
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1
