@@ -234,6 +234,31 @@ JSON line:
              roofline seconds beside the measured peak and step, as
              ratios with no gate
 
+  pipeline   (after dryrun) training/pipeline.py's GPipe schedule on
+             stablelm-3b whole (2.795 B bf16 parameters, remat), 2 stages
+             of 16 layers on 2 ranks spawned on the card (gloo: ranks on
+             one card cannot form an NCCL group; the stage shift staged
+             through pinned host buffers), 4 microbatches of 2 x 2,048
+             tokens: (a) under grad, einsum attention: the loss within
+             1e-3 relative of the one-process loss of the same
+             microbatches on the same parameters (bitwise reported), the
+             embedding gradient finite, nonzero and within 1e-2 relative
+             L2 of the one-process one, every stage leaf's gradient
+             finite; (b) attn_impl "flash" under no_grad: the same loss
+             check, flash launches counted from 0 just before it by
+             route: 5 ticks x 16 layers x 2 ranks = 160; the step's ms,
+             the shift's ms and bytes staged, each tick's compute and the
+             measured bubble share beside the schedule's 0.20, each
+             rank's peak GB
+  tp_modes   the tensor-parallel modes on 4 ranks spawned on the card
+             (gloo) on a (2, 2) ("data", "model") mesh, the parameters
+             distributed with the production shardings, a forward on 4 x
+             2,048 tokens a mode: stablelm-3b whole in megatron, ulysses
+             and megatron_rs, mixtral-8x7b at full width cut to 2 of its
+             32 layers in megatron and ulysses + moe_ep; each loss within
+             5e-3 of the model's one-rank loss, and megatron_rs's
+             gradient norm (one backward pass) within 1e-2 of megatron's
+
   train      the trainer (no kernel of its own; attention by einsum), in
              a child process of this script (``--train``), the one
              that sets CUBLAS_WORKSPACE_CONFIG for the deterministic step:
@@ -997,7 +1022,8 @@ def check_flash(q, k, v, causal, window, qk_scale, general=False) -> float:
 
 def lm_kernel_phase(dev) -> dict:
     """flash_attention's two kernels vs the plain version at small shapes,
-    at the serve path's and at the family cells'; the two kernels timed in
+    at the serve path's, the family cells' and the pipeline phase's; the
+    two kernels timed in
     turns at the serve path's shape and at the encoder's (non-causal).
     Returns the timing entries of both, the encoder's under
     ``"noncausal"``."""
@@ -1059,6 +1085,22 @@ def lm_kernel_phase(dev) -> dict:
                 if not causal:
                     enc_err = max(enc_err, e)
             torch.cuda.empty_cache()
+    # the pipeline phase's attention: stablelm-3b's MHA 32/32 at D 80 over
+    # PIPE_B x PIPE_SEQ, through the default entry and the general one
+    pc = get_config(PIPE_ARCH)
+    for qs in FA_QK_SCALES:
+        pin = fa_inputs(gen, PIPE_B, pc.n_heads, pc.n_kv_heads, PIPE_SEQ,
+                        PIPE_SEQ, pc.hd, torch.bfloat16, dev, qs)
+        e = check_flash(*pin, True, None, qs)
+        if fa_ops.kernel_route(pin[0].dtype, pc.hd,
+                               fa_ops.aligned16(*pin)) == "sm90":
+            err = max(err, e)
+        else:
+            err_general = max(err_general, e)
+        err_general = max(err_general, check_flash(*pin, True, None, qs,
+                                                   general=True))
+        del pin
+        torch.cuda.empty_cache()
     q, k, v = fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16, dev)
     err = max(err, check_flash(q, k, v, True, None, FA_QK_SCALES[0]))
     err_general = max(err_general, check_flash(
@@ -3853,6 +3895,427 @@ def dryrun_phase(grounding: dict) -> None:
     emit("dryrun", phase_s=time.perf_counter() - t0)
 
 
+# ------------------------------------------- the pipeline and TP modes ----
+# pipeline: stablelm-3b whole, 2 stages of 16 layers on 2 ranks sharing the
+# card over gloo, 4 microbatches of 2 x 2,048 tokens (the train phase's
+# global batch of 8 x 2,048), remat on
+PIPE_ARCH = "stablelm-3b"
+PIPE_STAGES, PIPE_MICRO, PIPE_B, PIPE_SEQ = 2, 4, 2, 2048
+PIPE_LOSS_RTOL = 1e-3
+PIPE_GRAD_RTOL = 1e-2
+# tp_modes: 4 ranks sharing the card on a (2, 2) ("data", "model") mesh,
+# a forward on 4 x 2,048 tokens a mode; (arch, layers (None: whole),
+# modes, modes that also take a backward pass)
+TP_BATCH, TP_SEQ = 4, 2048
+TP_LOSS_ATOL = 5e-3
+# the logits against the one-rank logits: the rows' (tokens') 90th
+# percentile relative L2 for every mode, 1.7x the worst bf16 gap measured
+# on the H100 (stablelm megatron's 1.72e-2); the whole relative L2 by
+# family, where MoE routing flips on near-ties move a few rows by O(1)
+# (mixtral megatron's whole 0.119 against its rows' 1.62e-2)
+TP_ROW_RTOL = 3e-2
+TP_LOGIT_RTOL = {"dense": 3e-2, "moe": 0.25}
+TP_GRAD_RTOL = 1e-2
+TP_CELLS = (("stablelm-3b", None, ("megatron", "ulysses", "megatron_rs"),
+             ("megatron", "megatron_rs")),
+            ("mixtral-8x7b", 2, ("megatron", "ulysses+ep"), ()))
+TP_MODE_FIELDS = {"megatron": {}, "ulysses": {"tp_mode": "ulysses"},
+                  "megatron_rs": {"tp_mode": "megatron_rs"},
+                  "ulysses+ep": {"tp_mode": "ulysses", "moe_ep": True}}
+
+
+def _ce(logits, labels):
+    """The pipeline's microbatch loss: mean cross entropy in float32."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def pipeline_batch(cfg, dev):
+    """(tokens, labels), each (PIPE_MICRO, PIPE_B, PIPE_SEQ), from SEED."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return tuple(torch.randint(0, cfg.vocab_size,
+                               (PIPE_MICRO, PIPE_B, PIPE_SEQ),
+                               generator=gen, device=dev) for _ in range(2))
+
+
+def pipeline_reference(dev, grad_path) -> dict:
+    """The one-process losses of the pipeline phase's microbatches on the
+    same parameters: (a) under grad (the embedding gradient saved to
+    ``grad_path``), (b) with flash under no_grad."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(PIPE_ARCH)
+    params = api.init_params(cfg, SEED, device=dev)
+    tokens, labels = pipeline_batch(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        embed = params.embed.detach().requires_grad_()
+        p = params._replace(embed=embed)
+        loss = sum(_ce(tfm.decoder_forward(p, cfg, tokens[i]), labels[i])
+                   for i in range(PIPE_MICRO)) / PIPE_MICRO
+        (g,) = torch.autograd.grad(loss, embed)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    torch.save(g.cpu(), grad_path)
+    del g, embed, p
+    fcfg = cfg.replace(attn_impl="flash")
+    with torch.no_grad():
+        loss_b = sum(_ce(tfm.decoder_forward(params, fcfg, tokens[i]),
+                         labels[i]) for i in range(PIPE_MICRO)) / PIPE_MICRO
+    out = {"loss": float(loss.detach()), "loss_flash": float(loss_b),
+           "step_ms": step_ms}
+    del params, loss, loss_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_shifts(link) -> list:
+    """Wrap a pipeline link's ``shift`` so that each shift is timed on the
+    host clock from the moment the device has finished the tensor it
+    sends.  Returns the log the wrapper fills: (direction, start, end) a
+    shift."""
+    log, shift = [], link.shift
+
+    def timed(t, forward):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = shift(t, forward)
+        log.append((forward, t0, time.perf_counter()))
+        return out
+
+    link.shift = timed
+    return log
+
+
+def _ticks(log, start, stage):
+    """Each tick's compute (ms, host clock) from the shift log of one
+    forward begun at ``start``: the time from the start or the previous
+    shift's end to the next shift's start; and whether the tick was in
+    the bubble (the stage held no microbatch)."""
+    ends = [start] + [e[2] for e in log]
+    ms = [(e[1] - a) * 1e3 for a, e in zip(ends, log)]
+    bubble = [not stage <= t < stage + PIPE_MICRO for t in range(len(ms))]
+    return ms, bubble
+
+
+def pipeline_rank(grad_path):
+    """Rank program of the phase pipeline (spawned, the ranks sharing the
+    card over gloo): (a) the pipelined loss and gradients, (b) the flash
+    forward with launches counted from 0 just before it."""
+    import torch.distributed as dist
+
+    from repro_torch.compat import make_auto_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.training.pipeline import (
+        make_pipeline_forward, stage_blocks,
+    )
+    from repro_torch.tree import leaves, unflatten
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(PIPE_ARCH)
+    mesh = make_auto_mesh((PIPE_STAGES,), ("pod",), "cuda")
+    params = api.init_params(cfg, SEED, device=dev)
+    loss_fn, _ = make_pipeline_forward(cfg, mesh, PIPE_MICRO)
+    link = loss_fn.link
+    log = timed_shifts(link)
+    stage = link.stage
+    own = stage_blocks(params.blocks, PIPE_STAGES)[stage]
+    embed, norm_w, head = params.embed, params.final_norm, params.lm_head
+    del params
+    torch.cuda.empty_cache()
+    tokens, labels = pipeline_batch(cfg, dev)
+    out = {"rank": dist.get_rank(), "stage": stage,
+           "backend": dist.get_backend()}
+
+    # (a) under grad, einsum attention, remat
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        views = [t.detach().requires_grad_()
+                 for t in [embed, norm_w, head, *leaves(own)]]
+        blocks = [None] * PIPE_STAGES
+        blocks[stage] = unflatten(own, views[3:])
+        loss = loss_fn(views[0], blocks, views[1], views[2], tokens, labels)
+        grads = torch.autograd.grad(loss, views)
+    torch.cuda.synchronize()
+    shift_ms = sum(e[2] - e[1] for e in log) * 1e3
+    out["a"] = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                "loss": float(loss.detach()),
+                "shifts": link.calls, "shift_ms": shift_ms,
+                "shift_ms_each": shift_ms / link.calls,
+                "bytes_staged": link.bytes_staged,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finite = [bool(torch.isfinite(g).all()) for g in grads]
+    ref_g = torch.load(grad_path).to(dev).to(torch.float32)
+    g = grads[0].to(torch.float32)
+    out["a"].update(
+        leaves=len(grads), finite_leaves=sum(finite),
+        embed_grad_norm=float(torch.linalg.vector_norm(g)),
+        embed_grad_rel_l2=float(torch.linalg.vector_norm(g - ref_g)
+                                / torch.linalg.vector_norm(ref_g)))
+    del grads, views, blocks, loss, g, ref_g
+    torch.cuda.empty_cache()
+
+    # (b) the flash forward, an evaluation loss
+    loss_fn, _ = make_pipeline_forward(cfg.replace(attn_impl="flash"), mesh,
+                                       PIPE_MICRO)
+    link = loss_fn.link
+    log = timed_shifts(link)
+    blocks = [None] * PIPE_STAGES
+    blocks[stage] = own
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = loss_fn(embed, blocks, norm_w, head, tokens, labels)
+    torch.cuda.synchronize()
+    ms, bubble = _ticks(log, t0, stage)
+    shift_ms = sum(e[2] - e[1] for e in log) * 1e3
+    out["b"] = {"forward_ms": (time.perf_counter() - t0) * 1e3,
+                "loss": float(loss), "launches": read_counts(),
+                "shifts": link.calls, "shift_ms": shift_ms,
+                "shift_ms_each": shift_ms / link.calls,
+                "bytes_staged": link.bytes_staged, "tick_ms": ms,
+                "bubble_ticks": bubble,
+                "bubble_share": sum(m for m, b in zip(ms, bubble) if b)
+                / sum(ms),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
+def pipeline_phase(dev, smi) -> dict:
+    """stablelm-3b whole through training/pipeline.py on PIPE_STAGES ranks
+    spawned on the card (gloo: ranks sharing a card cannot form an NCCL
+    group), the stage shift staged through pinned host buffers: (a) under
+    grad, the loss within PIPE_LOSS_RTOL of the one-process loss of the
+    same microbatches on the same parameters (bitwise reported), the
+    embedding gradient finite, nonzero and within PIPE_GRAD_RTOL relative
+    L2 of the one-process one, every stage leaf's gradient finite; (b)
+    with flash under no_grad, the loss within PIPE_LOSS_RTOL of the same
+    one-process einsum loss (lm_kernel_phase holds the kernel itself to
+    the plain attention at this shape), every flash launch counted by
+    route: 5 ticks x 16 layers x 2 ranks.  Returns (b)'s
+    launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "embed_grad.pt")
+        ref = pipeline_reference(dev, path)
+        ranks = spawn_ranks(pipeline_rank, PIPE_STAGES, args=(path,),
+                            device="cuda", timeout_s=600)
+    n_ticks = PIPE_MICRO + PIPE_STAGES - 1
+    for r in ranks:
+        a, b = r["a"], r["b"]
+        for name, got, want in (("(a)", a["loss"], ref["loss"]),
+                                ("(b)", b["loss"], ref["loss"])):
+            check(abs(got - want) <= PIPE_LOSS_RTOL * abs(want),
+                  f"pipeline {name}: rank {r['rank']} loss {got} against "
+                  f"the one-process {want}")
+        check(a["finite_leaves"] == a["leaves"],
+              f"pipeline (a): rank {r['rank']}: "
+              f"{a['leaves'] - a['finite_leaves']} gradient leaves not "
+              f"finite")
+        check(a["embed_grad_norm"] > 0
+              and a["embed_grad_rel_l2"] <= PIPE_GRAD_RTOL,
+              f"pipeline (a): rank {r['rank']} embedding gradient norm "
+              f"{a['embed_grad_norm']}, relative L2 {a['embed_grad_rel_l2']}")
+        check(a["shifts"] == 2 * n_ticks - 1 and b["shifts"] == n_ticks,
+              f"pipeline: rank {r['rank']} shifted {a['shifts']} / "
+              f"{b['shifts']} times")
+    launches = sum_counts([r["b"]["launches"] for r in ranks])
+    # one launch a layer a tick on each stage: 5 x 16 x 2
+    want = n_ticks * get_config(PIPE_ARCH).n_layers
+    check(launches["flash_attention"] == want
+          and launches["flash_attention_sm90"]
+          + launches["flash_attention_general"] == want,
+          f"pipeline (b): {launches['flash_attention']} flash launches, "
+          f"not {want}")
+    emit("pipeline", arch=PIPE_ARCH, stages=PIPE_STAGES, micro=PIPE_MICRO,
+         batch=PIPE_B, seq=PIPE_SEQ, backend=ranks[0]["backend"],
+         reference=ref,
+         loss_a=[r["a"]["loss"] for r in ranks],
+         loss_a_bitwise=all(r["a"]["loss"] == ref["loss"] for r in ranks),
+         loss_b=[r["b"]["loss"] for r in ranks],
+         loss_b_bitwise=all(r["b"]["loss"] == ref["loss_flash"]
+                            for r in ranks),
+         flash_launches=launches["flash_attention"],
+         flash_launches_sm90=launches["flash_attention_sm90"],
+         flash_launches_general=launches["flash_attention_general"],
+         schedule_bubble_share=(PIPE_STAGES - 1) / n_ticks,
+         ranks=ranks, card=smi, phase_s=time.perf_counter() - t0)
+    return launches
+
+
+def tp_config(arch, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+class captured_logits:
+    """Within the block, every call of ``api.loss_fn`` keeps its logits
+    (detached) in the list the block receives: the modes' logits come
+    from the same forward as their loss."""
+
+    def __enter__(self):
+        from repro_torch.models import api
+
+        self.api, self.orig, kept = api, api.forward_logits, []
+
+        def keep(*a, **kw):
+            logits = self.orig(*a, **kw)
+            kept.append(logits.detach())
+            return logits
+
+        api.forward_logits = keep
+        return kept
+
+    def __exit__(self, *exc):
+        self.api.forward_logits = self.orig
+
+
+def logits_error(got, ref) -> tuple:
+    """(relative L2, max abs, the 90th percentile of the rows' relative
+    L2) of logits ``got`` against ``ref``, in float32; a row is one
+    token's logits.  On a DTensor each rank compares its own shard with
+    the same slice of ``ref``, which every rank holds whole."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.sharding import is_dtensor
+
+    if is_dtensor(got):
+        pl = [Replicate() if p.is_partial() else p for p in got.placements]
+        got = got.redistribute(placements=pl)
+        ref = distribute_tensor(ref, got.device_mesh, pl, src_data_rank=None)
+    d, r = got.float() - ref.float(), ref.float()
+    norm = torch.linalg.vector_norm
+    out = [norm(d), norm(r), d.abs().max(), norm(d, dim=-1), norm(r, dim=-1)]
+    out = [x.full_tensor() if is_dtensor(x) else x for x in out]
+    rows = (out[3] / out[4]).flatten()
+    return (float(out[0] / out[1]), float(out[2]),
+            float(torch.quantile(rows, 0.9)))
+
+
+def tp_rank():
+    """Rank program of the phase tp_modes (spawned, 4 ranks sharing the
+    card over gloo on a (2, 2) ("data", "model") mesh).  Each cell's
+    one-rank loss and logits (plain tensors, no mesh), computed on every
+    rank, and on rank 0 the logits' relative L2 change from the blocks
+    (the model without them against the model); then each mode, the
+    parameters distributed with the production shardings: its loss, its
+    logits' relative L2 and max abs error against the one-rank logits,
+    and a backward pass's gradient norm for the modes that take one."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.compat import make_auto_mesh
+    from repro_torch.launch.specs import distribute_params
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.sharding import placements, resolve, use_mesh
+    from repro_torch.training.trainer import value_and_grad
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_auto_mesh((2, 2), ("data", "model"), "cuda")
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    for arch, layers, modes, backward in TP_CELLS:
+        cfg = tp_config(arch, layers)
+        params = api.init_params(cfg, SEED, device=dev)
+        batch = api.make_batch(cfg, SEED, TP_BATCH, TP_SEQ, device=dev)
+        with torch.no_grad(), captured_logits() as kept:
+            out[arch] = {"loss": float(api.loss_fn(cfg, params, batch))}
+            ref = kept[0]
+            if out["rank"] == 0:
+                bare = api.forward_logits(cfg, params._replace(blocks=[]),
+                                          batch)
+                out[arch]["blocks_rel_l2"] = logits_error(bare, ref)[0]
+                del bare
+        pl = placements(mesh, resolve(mesh, "dp", None), 2)
+        dbatch = {k: distribute_tensor(v, mesh, pl, src_data_rank=None)
+                  for k, v in batch.items()}
+        for mode in modes:
+            mcfg = cfg.replace(**TP_MODE_FIELDS[mode])
+            dparams = distribute_params(mcfg, params, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = {}
+            with use_mesh(mesh), captured_logits() as kept:
+                if mode in backward:
+                    loss, grads = value_and_grad(mcfg, dparams, dbatch)
+                    rec["grad_norm"] = float(global_norm(grads).full_tensor())
+                    del grads
+                else:
+                    with torch.no_grad():
+                        loss = api.loss_fn(mcfg, dparams, dbatch)
+                rec["loss"] = float(loss.full_tensor())
+                torch.cuda.synchronize()
+                rec.update(ms=(time.perf_counter() - t0) * 1e3,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                (rec["logits_rel_l2"], rec["logits_max_abs"],
+                 rec["logits_p90_row_rel_l2"]) = logits_error(kept[0], ref)
+            out[f"{arch} {mode}"] = rec
+            del dparams, loss, kept
+        del params, batch, dbatch, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_modes_phase(smi) -> None:
+    """The tensor-parallel modes on 4 ranks spawned on the card (gloo) on a
+    (2, 2) ("data", "model") mesh, a forward on TP_BATCH x TP_SEQ tokens
+    a mode: stablelm-3b whole in megatron, ulysses and megatron_rs;
+    mixtral-8x7b at full width cut to 2 of its 32 layers (its 32 at four
+    copies, one a rank, would not fit the card) in megatron and ulysses +
+    moe_ep.  Each mode's loss within TP_LOSS_ATOL of the model's one-rank
+    loss, and its logits against the one-rank logits within TP_ROW_RTOL
+    relative L2 at the rows' 90th percentile and within TP_LOGIT_RTOL
+    whole; megatron and megatron_rs also take a backward pass, whose
+    gradient norms agree within TP_GRAD_RTOL.  gloo runs every collective
+    the modes need on CUDA tensors (all-gather through c10d's call,
+    launch/mesh.py::route_functional_all_gather), so no mode is left
+    out."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, 4, device="cuda", timeout_s=900)
+    emit("tp_modes", mesh=[2, 2], backend=ranks[0]["backend"],
+         batch=TP_BATCH, seq=TP_SEQ,
+         one_rank={arch: ranks[0][arch] for arch, *_ in TP_CELLS},
+         modes={k: v for k, v in ranks[0].items() if " " in k},
+         peak_gb_by_rank={r["rank"]: max(v["peak_gb"] for k, v in r.items()
+                                         if " " in k) for r in ranks},
+         card=smi, phase_s=time.perf_counter() - t0)
+    for arch, layers, modes, backward in TP_CELLS:
+        whole_tol = TP_LOGIT_RTOL[tp_config(arch, layers).family]
+        for mode in modes:
+            got = [(r[f"{arch} {mode}"]["loss"], r[arch]["loss"])
+                   for r in ranks]
+            check(all(abs(x - want) <= TP_LOSS_ATOL for x, want in got),
+                  f"tp_modes: {arch} {mode} losses against the one-rank "
+                  f"ones: {got}")
+            rec = ranks[0][f"{arch} {mode}"]
+            rel, row = rec["logits_rel_l2"], rec["logits_p90_row_rel_l2"]
+            check(rel <= whole_tol and row <= TP_ROW_RTOL,
+                  f"tp_modes: {arch} {mode} logits against the one-rank "
+                  f"logits: relative L2 {rel}, rows' 90th percentile {row}")
+        if len(backward) == 2:
+            a, b = (ranks[0][f"{arch} {m}"]["grad_norm"] for m in backward)
+            check(abs(b - a) <= TP_GRAD_RTOL * abs(a),
+                  f"tp_modes: {arch} grad norms {backward}: {a}, {b}")
+
+
 def counters() -> dict:
     """Each kernel's wrapper module (its ``launches`` counters)."""
     from repro_torch.kernels.block_sweep import ops as bs_ops
@@ -4477,6 +4940,11 @@ def main() -> None:
     # worlds of 256 / 512 ranks, and in a world of one (no kernel runs)
     dryrun_phase(grounding)
 
+    # --- the GPipe pipeline (stablelm-3b in 2 stages) and the
+    # tensor-parallel modes, each on ranks spawned on the card
+    pipe_launches = pipeline_phase(dev, smi)
+    tp_modes_phase(smi)
+
     # one entry per kernel; a wrapper that routes between two kernels has
     # an entry for each, which counts its own route's launches
     kernels = []
@@ -4563,7 +5031,8 @@ def main() -> None:
                             "batched_stacked": stacked_launches[key],
                             "distributed": dist_launches[key],
                             "distributed_blocked": dist_blk_launches[key],
-                            "train": train_launches[key]},
+                            "train": train_launches[key],
+                            "pipeline": pipe_launches[key]},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

@@ -6,8 +6,15 @@ over every device of a host; here each rank is a process, and
 
 - ``nccl`` when every rank of the host has a card of its own;
 - ``gloo`` on the CPU, or when ranks share a card (NCCL refuses two ranks
-  on one GPU; gloo takes CUDA tensors for ``all_reduce`` and
-  ``broadcast``, staging them through the host).
+  on one GPU; gloo takes CUDA tensors for ``all_reduce``, ``broadcast``,
+  ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+  ``all_to_all_single``, staging them through the host, but not for
+  ``send`` / ``recv``).  In the card's PyTorch 2.11 the functional
+  all-gather (``_c10d_functional.all_gather_into_tensor``, which
+  DTensor's gathers call) dies with SIGSEGV on CUDA tensors under gloo,
+  where c10d's own ``all_gather_into_tensor`` runs:
+  :func:`route_functional_all_gather` sends the first to the second, and
+  :func:`init_ranks` installs it for gloo ranks on a card.
 
 A backend that was asked for and fails raises; nothing falls back to
 another one.  :func:`spawn_ranks` starts a group of ranks on this host
@@ -119,7 +126,33 @@ def init_ranks(backend: str | None = None, *, device=None,
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "gloo" and dev.type == "cuda":
+        route_functional_all_gather("CUDA")
     return Ranks(rank, world_size, local_rank, backend, dev)
+
+
+_ROUTED = {}
+
+
+def route_functional_all_gather(dispatch_key: str) -> None:
+    """Run ``_c10d_functional.all_gather_into_tensor`` on ``dispatch_key``
+    tensors through c10d's ``all_gather_into_tensor`` on the resolved
+    group (synchronously: the result is complete when it returns, and the
+    functional ``wait_tensor`` finds no work to wait for).  For a world of
+    gloo ranks on a card (see the module docstring); once a process."""
+    if dispatch_key in _ROUTED:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(
+            out, inp.contiguous(), group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, dispatch_key)
+    _ROUTED[dispatch_key] = lib
 
 
 def close_ranks() -> None:

@@ -226,3 +226,17 @@ def n_microbatches(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
     per_dp = max(1, shape.global_batch // dp_size(mesh))
     per_micro = 1 if cfg.d_model >= 4096 else 4
     return max(1, per_dp // per_micro)
+
+
+def distribute_params(cfg: ModelConfig, params, mesh):
+    """Real parameters, the same values on every rank, as DTensors with
+    the sanitized shardings of :func:`param_shardings`: the counterpart of
+    the reference's ``jax.device_put(x, sanitize_sharding(sh, x.shape,
+    mesh))``.  Each rank keeps its own shard of its copy; nothing moves."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(
+        lambda t, sh: distribute_tensor(
+            t, mesh, sanitize_sharding(sh, t.shape, mesh).placements(t.ndim),
+            src_data_rank=None),
+        params, param_shardings(cfg, mesh))

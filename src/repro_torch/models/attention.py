@@ -31,7 +31,8 @@ import torch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import dtype_of, rope, trunc_normal, zeros
 from repro_torch.sharding import (
-    constrain, is_dtensor, proj, replicate_dim, shards_of,
+    constrain, is_dtensor, proj, replicate_dim, seq_matmuls, shards_of,
+    tp_ag_matmuls, tp_rs_matmul,
 )
 
 NEG_INF = -1e30
@@ -78,14 +79,18 @@ def _heads(t, B, S, n, hd):
     return t.reshape(B, S, n, hd)
 
 
-def _qkv(p, x, cfg, kv_x=None):
-    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
+def _qkv(p, x, cfg, kv_x=None, matmuls=None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``.
+    ``matmuls(x, wq, wk, wv)``, where given, computes the three
+    self-attention products at once (the TP modes' ``tp_ag_matmuls`` /
+    ``seq_matmuls``); else each is its own :func:`proj`."""
     kv_x = x if kv_x is None else kv_x
     B, S, Skv = x.shape[0], x.shape[1], kv_x.shape[1]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = proj(x, p["wq"])
-    k = proj(kv_x, p["wk"])
-    v = proj(kv_x, p["wv"])
+    if matmuls is None:
+        q, k, v = proj(x, p["wq"]), proj(kv_x, p["wk"]), proj(kv_x, p["wv"])
+    else:
+        q, k, v = matmuls(x, p["wq"], p["wk"], p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (_heads(q, B, S, H, hd), _heads(k, B, Skv, K, hd),
@@ -231,14 +236,28 @@ def multihead_attention(
     every cross call).
 
     Under a mesh the reference's constraints apply: heads over tp around
-    the attention itself."""
+    the attention itself, and by ``cfg.tp_mode`` for self-attention:
+    megatron_rs fuses the sequence all-gather with the q, k and v
+    products (:func:`~repro_torch.sharding.tp_ag_matmuls`) and
+    reduce-scatters the ``wo`` product's partial sums by hand
+    (``tp_rs_matmul``); ulysses runs the projections on the
+    sequence-sharded stream (:func:`~repro_torch.sharding.seq_matmuls`)
+    and reshards q, k and v from sequence to heads, and the output back
+    (all-to-alls of activation / tp bytes, where megatron all-reduces the
+    whole activation).  Without a mesh every mode is the same product."""
     cross = kv_x is not None
-    q, k, v = _qkv(p, x, cfg, kv_x)
+    mode = "megatron" if cross else cfg.tp_mode
+    q, k, v = _qkv(p, x, cfg, kv_x, {"megatron_rs": tp_ag_matmuls,
+                                     "ulysses": seq_matmuls}.get(mode))
     if use_rope and not cross:
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)[None, :]
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if mode == "ulysses":
+        q = constrain(q, "dp", "sp", None, None)
+        k = constrain(k, "dp", "sp", None, None)
+        v = constrain(v, "dp", "sp", None, None)
     q = constrain(q, "dp", None, "tp", None)
     k = constrain(k, "dp", None, "tp", None)
     v = constrain(v, "dp", None, "tp", None)
@@ -258,8 +277,16 @@ def multihead_attention(
     else:
         o = _einsum_attn(q, k, v, causal, window)
     o = constrain(o, "dp", None, "tp", None)
+    if mode == "ulysses":
+        o = constrain(o, "dp", "sp", None, None)    # back to the sequence
     B, S = o.shape[0], o.shape[1]
-    out = proj(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"])
+    o2 = o.reshape(B, S, cfg.n_heads * cfg.hd)
+    if mode == "megatron":
+        out = proj(o2, p["wo"])
+    elif mode == "ulysses":
+        (out,) = seq_matmuls(o2, p["wo"])
+    else:
+        out = tp_rs_matmul(o2, p["wo"])
     if return_kv:
         return out, (k, v)
     return out

@@ -3,22 +3,29 @@
 The port's own copy of :mod:`repro.models.config` (pure data, the same
 fields and defaults), so that the port imports nothing of the JAX package.
 
-Some fields only shape compilation and sharding in the JAX package and
-are refused here away from their defaults (:data:`NO_EFFECT`,
+Two fields only shape compilation in the JAX package and are refused
+here away from their defaults (:data:`NO_EFFECT`,
 ``models/transformer.py::check_family``), so that a setting that would do
-nothing, or that nothing here tests yet, fails loudly: ``scan_layers``
-(``lax.scan`` over stacked layers; the port loops over per-layer
-parameter dicts), ``moe_bf16_dispatch`` (it only casts the reference's
-one-hot dispatch and its combine weights to the activations' dtype
-earlier: the dispatch is exact either way, and ``repro/models/moe.py:114``
-rounds the combine weights to that dtype anyway, so the result is the
-same bits), and ``tp_mode``, ``moe_ep`` and ``opt_collectives``, which
-change the reference's sharding under a mesh: the port places the
-default mode's constraints (:mod:`repro_torch.sharding`), and the other
-modes wait for their multi-rank parity test (ROADMAP.md queue 1).  They
-are kept so that a
-configuration reads the same in both packages.  ``remat`` takes effect:
-the port recomputes each block in the backward pass
+nothing fails loudly: ``scan_layers`` (``lax.scan`` over stacked layers;
+the port loops over per-layer parameter dicts) and ``moe_bf16_dispatch``
+(it only casts the reference's one-hot dispatch and its combine weights
+to the activations' dtype earlier: the dispatch is exact either way, and
+``repro/models/moe.py:114`` rounds the combine weights to that dtype
+anyway, so the result is the same bits).  They are kept so that a
+configuration reads the same in both packages.
+
+The sharding fields act under a mesh (:mod:`repro_torch.sharding`), as
+in the reference: ``tp_mode`` (``megatron``, ``ulysses`` or
+``megatron_rs``; any other value raises) picks the tensor-parallel
+layout of the attention and MLP blocks, ``moe_ep`` shards the experts
+over the model axis and sends their token buffers by all-to-all, and
+``opt_collectives`` is accepted at both values, which give one layout:
+the port always places the reference's ``opt_collectives=True``
+boundaries (the post-norm activation gathered over the sequence in its
+own dtype, each sub-block's output reduce-scattered onto it before the
+residual add; ``models/transformer.py::_norm`` / ``_out``).  On one card
+every mode computes the same function.  ``remat`` takes effect: the port
+recomputes each block in the backward pass
 (``models/transformer.py::_maybe_remat``).
 """
 
@@ -29,8 +36,10 @@ from typing import Optional, Tuple
 
 
 # fields with no effect in the port (see the module docstring)
-NO_EFFECT = ("scan_layers", "opt_collectives", "moe_bf16_dispatch",
-             "tp_mode", "moe_ep")
+NO_EFFECT = ("scan_layers", "moe_bf16_dispatch")
+
+# the tensor-parallel layouts (``tp_mode``)
+TP_MODES = ("megatron", "ulysses", "megatron_rs")
 
 
 @dataclasses.dataclass(frozen=True)

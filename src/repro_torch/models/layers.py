@@ -6,8 +6,9 @@ generator's device, so a model initializes on the card without a copy.
 On the ``meta`` device (:func:`repro_torch.models.api.abstract_params`)
 the helpers make empty tensors of the same shapes and dtypes and draw
 nothing.  The spec functions (``*_specs``) give each parameter's logical
-axes, and :func:`mlp` places the reference's sharding constraints
-(:mod:`repro_torch.sharding`), which act only under a mesh.
+axes, and :func:`mlp` places the reference's sharding constraints and manual
+tensor-parallel regions (:mod:`repro_torch.sharding`), which act only
+under a mesh.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding import constrain, proj
+from repro_torch.sharding import (
+    constrain, proj, seq_matmuls, tp_ag_matmuls, tp_rs_matmul,
+)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -105,18 +108,34 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: Optional[int] = None):
 
 def mlp(p, x, cfg):
     """Feed-forward block: SwiGLU, or GeLU (tanh form, as ``jax.nn.gelu``)
-    with optional biases.  Under a mesh the hidden activation is sharded
-    over tp (megatron: a partial-sum reduction on the down projection)."""
+    with optional biases.  Under a mesh, by ``cfg.tp_mode``: megatron,
+    the hidden activation sharded over tp (a partial-sum reduction on the
+    down projection); ulysses, the token stream stays sequence-sharded and
+    the weights are gathered instead (:func:`~repro_torch.sharding.
+    seq_matmuls`: no activation collective); megatron_rs, the sequence
+    all-gather fused with the up/gate products and the down product's
+    partial sums reduce-scattered onto the sequence by hand
+    (:func:`~repro_torch.sharding.tp_ag_matmuls`, ``tp_rs_matmul``).
+    Without a mesh every mode is the plain product."""
+    mode = cfg.tp_mode
+    hidden_spec = ("dp", "sp", None) if mode == "ulysses" else \
+        ("dp", None, "tp")
+    if mode == "megatron":
+        ups, down = (lambda *ws: tuple(proj(x, w) for w in ws)), proj
+    elif mode == "ulysses":
+        ups, down = (lambda *ws: seq_matmuls(x, *ws)), \
+            (lambda h, w: seq_matmuls(h, w)[0])
+    else:
+        ups, down = (lambda *ws: tp_ag_matmuls(x, *ws)), tp_rs_matmul
     if cfg.mlp_type == "swiglu":
-        h = F.silu(proj(x, p["w_gate"])) * proj(x, p["w_up"])
-        h = constrain(h, "dp", None, "tp")
-        return proj(h, p["w_down"])
-    h = proj(x, p["w_up"])
+        g, u = ups(p["w_gate"], p["w_up"])
+        h = constrain(F.silu(g) * u, *hidden_spec)
+        return down(h, p["w_down"])
+    (h,) = ups(p["w_up"])
     if "b_up" in p:
         h = h + p["b_up"]
-    h = F.gelu(h, approximate="tanh")
-    h = constrain(h, "dp", None, "tp")
-    y = proj(h, p["w_down"])
+    h = constrain(F.gelu(h, approximate="tanh"), *hidden_spec)
+    y = down(h, p["w_down"])
     if "b_down" in p:
         y = y + p["b_down"]
     return y

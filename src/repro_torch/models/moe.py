@@ -24,9 +24,12 @@ The dispatch is one scatter of fixed shape into the (E, g, C) slots
 (:func:`_dispatch_rows`: a dropped pair writes into a spare expert that
 no expert reads), so nothing is read on the host and the same path runs
 on the card, on the CPU and in a traced step.  Under a mesh (DTensor
-activations: the dry run) the dispatch and the combine run on each
-rank's own groups and the experts' products are DTensor's, their hidden
-dim over tp as the reference constrains it (:func:`_sharded_rows`).
+activations) the dispatch and the combine run on each rank's own groups
+and the experts' products are DTensor's, their hidden dim over tp as the
+reference constrains it; with ``cfg.moe_ep`` the experts are over tp
+instead, and each rank of the model axis dispatches its own range of
+every expert's slots, which an all-to-all sends to the experts' ranks
+and another brings back (:func:`_sharded_rows`).
 
 Decode (:func:`moe_decode`) drops nothing: each token's chosen experts run
 with no capacity.  The reference gathers the (T, k, d, f) weights of the
@@ -93,6 +96,16 @@ def init_moe(gen: torch.Generator, cfg):
 
 
 def moe_specs(cfg):
+    if cfg.moe_ep:
+        # expert parallelism: experts over the model axis, token buffers
+        # sent to their experts by all-to-all (:func:`_sharded_rows`);
+        # the d_model dim ZeRO-sharded
+        return {
+            "router": (None, None),
+            "w_gate": ("tp", "fsdp", None),
+            "w_up": ("tp", "fsdp", None),
+            "w_down": ("tp", None, "fsdp"),
+        }
     return {
         "router": (None, None),
         "w_gate": (None, "fsdp", "tp"),
@@ -143,65 +156,112 @@ def dispatch(top_e, cap: int, E: int):
     return slot, slot < cap
 
 
-def _dispatch_rows(xg, top_e, cap: int, E: int):
+def _dispatch_rows(xg, top_e, cap: int, E: int, lo: int = 0,
+                   width: Optional[int] = None):
     """Each group's kept pairs' token rows in their experts' slots:
-    xg (g, t, d), top_e (g, t, k) -> (xe (E, g, cap, d), slot, kept).
+    xg (g, t, d), top_e (g, t, k) -> (xe (E, g, width, d), slot, kept),
+    for the slots ``lo .. lo + width - 1`` (default: all ``cap``).
 
-    One scatter of fixed shape, with nothing read on the host: a dropped
-    pair writes into a spare expert's first slot, which no expert reads
-    (a kept pair owns its slot alone)."""
+    One scatter of fixed shape, with nothing read on the host: a pair
+    that is dropped, or whose slot lies outside the range, writes into a
+    spare expert's first slot, which no expert reads (a kept pair owns its
+    slot alone)."""
     g, t, k = top_e.shape
+    width = cap if width is None else width
     slot, kept = dispatch(top_e, cap, E)
+    mine = kept & (slot >= lo) & (slot < lo + width)
     gi = torch.arange(g, device=xg.device)[:, None, None].expand(g, t, k)
-    xe = xg.new_zeros((E + 1, g, cap, xg.shape[-1]))
-    xe[torch.where(kept, top_e, E), gi,
-       torch.where(kept, slot, 0)] = xg[:, :, None, :]
+    xe = xg.new_zeros((E + 1, g, width, xg.shape[-1]))
+    xe[torch.where(mine, top_e, E), gi,
+       torch.where(mine, slot - lo, 0)] = xg[:, :, None, :]
     return xe[:E], slot, kept
 
 
-def _combine_rows(ye, top_g, top_e, slot, kept):
+def _combine_rows(ye, top_g, top_e, slot, kept, lo: int = 0):
     """Each pair's expert row times its gate, rounded to the experts'
-    dtype first; a dropped pair weighs 0: ye (E, g, cap, d) -> (g, t, d)."""
+    dtype first; a dropped pair, or one whose slot lies outside ye's
+    slots ``lo ..``, weighs 0: ye (E, g, width, d) -> (g, t, d)."""
     g, t, k = top_e.shape
+    width = ye.shape[2]
+    mine = kept & (slot >= lo) & (slot < lo + width)
     gi = torch.arange(g, device=ye.device)[:, None, None].expand(g, t, k)
-    rows = ye[top_e, gi, torch.clamp(slot, max=ye.shape[2] - 1)]
-    w = torch.where(kept, top_g, 0.0).to(ye.dtype)
+    rows = ye[top_e, gi, torch.clamp(slot - lo, 0, width - 1)]
+    w = torch.where(mine, top_g, 0.0).to(ye.dtype)
     y = (rows.to(torch.float32) * w.to(torch.float32)[..., None]).sum(2)
     return y.to(ye.dtype)
 
 
-def _sharded_rows(p, xg, top_g, top_e, cap: int, E: int):
+def _sharded_rows(p, xg, top_g, top_e, cap: int, E: int, ep: bool):
     """:func:`_dispatch_rows`, the experts and :func:`_combine_rows` on
     DTensors (under a mesh): the dispatch and the combine run on each
     rank's own groups (``local_map``; DTensor has no sharding rule for
     the scatter and the gather by index), the experts' products on the
-    slots by DTensor, their hidden dim over tp as the reference
-    constrains it.  The combine is linear in the expert rows, so a
+    slots by DTensor.  The combine is linear in the expert rows, so a
     partial sum over the model axis passes through it and is reduced on
-    the (g, t, d) output."""
-    from torch.distributed.tensor import Replicate, Shard
+    the (g, t, d) output.
+
+    Without ``ep`` every rank of the model axis dispatches its groups'
+    pairs, and the experts' hidden dim is over tp as the reference
+    constrains it.  With ``ep`` (expert parallelism, on a model axis of
+    more than one rank) rank r of the model axis dispatches the pairs of
+    its own range of each expert's slots (``ceil(cap / tp)`` of them);
+    the buffers go to the ranks that hold their experts by an all-to-all
+    over ``model`` (slots split -> experts split), each rank runs its own
+    experts on them, the rows come back by the reverse all-to-all, and
+    each rank combines its own slots' pairs: partial sums over
+    ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = xg.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
     pl = list(xg.placements)              # groups over dp, dim 0
     top_g, top_e = (a.redistribute(mesh, pl) for a in (top_g, top_e))
+    tp = names.index("model") if "model" in names else None
+    ep = ep and tp is not None and mesh.size(tp) > 1
+    width, lo = cap, 0
     slots = [Shard(1) if q == Shard(0) else q for q in pl]
+    grad_pl = pl
+    if ep:
+        width = -(-cap // mesh.size(tp))
+        lo = mesh.get_local_rank("model") * width
+        slots[tp] = Shard(2)
+        grad_pl = [Partial() if i == tp else q for i, q in enumerate(pl)]
     xe, slot, kept = local_map(
-        functools.partial(_dispatch_rows, cap=cap, E=E),
+        functools.partial(_dispatch_rows, cap=cap, E=E, lo=lo,
+                          width=width),
         out_placements=(slots, pl, pl), in_placements=(pl, pl),
+        in_grad_placements=(grad_pl, pl),
         redistribute_inputs=False)(xg, top_e)
     g, d = xe.shape[1], xe.shape[3]
-    ye = _experts(p, xe.reshape(E, g * cap, d),
-                  hidden=(None, "dp", "tp")).reshape(E, g, cap, d)
-    # the groups split as the tokens are; an expert or slot split gathered
-    want = [Shard(1) if q == Shard(0) else
-            Replicate() if isinstance(r, Shard) and r.dim != 3 else r
-            for q, r in zip(pl, ye.placements)]
-    ye = ye.redistribute(mesh, want)
-    out = [Shard(0) if r == Shard(1) else Shard(2) if r == Shard(3) else r
-           for r in want]
-    y = local_map(_combine_rows, out_placements=out,
+    cap_all = xe.shape[2]
+    if ep:
+        # slots split -> experts split over model: the all-to-all
+        xe = constrain(xe, "tp", "dp", None, None)
+        ye = _experts(p, xe.reshape(E, g * cap_all, d),
+                      hidden=("tp", "dp", None)).reshape(E, g, cap_all, d)
+        want = [Shard(2) if i == tp else q for i, q in enumerate(slots)]
+    else:
+        ye = _experts(p, xe.reshape(E, g * cap_all, d),
+                      hidden=(None, "dp", "tp")).reshape(E, g, cap_all, d)
+        # the groups split as the tokens are; an expert or slot split
+        # gathered
+        want = [Shard(1) if q == Shard(0) else
+                Replicate() if isinstance(r, Shard) and r.dim != 3 else r
+                for q, r in zip(pl, ye.placements)]
+    ye = ye.redistribute(mesh, want)      # with ep: the reverse all-to-all
+    out = [Partial() if ep and i == tp else
+           Shard(0) if r == Shard(1) else Shard(2) if r == Shard(3) else r
+           for i, r in enumerate(want)]
+    # a partial ye (the hidden dim's sums) or a rank's own slots: the
+    # gates' gradient is that rank's share; ye's is whole on each rank
+    g_pl = [Partial() if isinstance(o, Partial) else q
+            for o, q in zip(out, pl)]
+    ye_pl = [Replicate() if isinstance(r, Partial) else r for r in want]
+    y = local_map(functools.partial(_combine_rows, lo=lo),
+                  out_placements=out,
                   in_placements=(want, pl, pl, pl, pl),
+                  in_grad_placements=(ye_pl, g_pl, pl, pl, pl),
                   redistribute_inputs=False)(ye, top_g, top_e, slot, kept)
     return constrain(y, "dp", None, None), kept
 
@@ -225,7 +285,7 @@ def moe_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
 
     top_g, top_e = _route(p["router"], xg, k)          # (g, t, k)
     if is_dtensor(xg):
-        y, kept = _sharded_rows(p, xg, top_g, top_e, cap, E)
+        y, kept = _sharded_rows(p, xg, top_g, top_e, cap, E, cfg.moe_ep)
     else:
         xe, slot, kept = _dispatch_rows(xg, top_e, cap, E)
         ye = _experts(p, xe.reshape(E, n_groups * cap, d)).reshape(

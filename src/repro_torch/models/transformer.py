@@ -56,11 +56,13 @@ from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.config import NO_EFFECT, ModelConfig
+from repro_torch.models.config import NO_EFFECT, TP_MODES, ModelConfig
 from repro_torch.models.layers import (
     dtype_of, init_mlp, mlp, mlp_specs, rms_norm, trunc_normal, zeros,
 )
-from repro_torch.sharding import constrain, embed_lookup, proj
+from repro_torch.sharding import (
+    constrain, current_mesh, embed_lookup, proj, use_mesh,
+)
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
@@ -69,7 +71,8 @@ def check_family(cfg) -> None:
     """Raise ``NotImplementedError`` unless ``cfg.family`` is one of the
     families the port runs, and ``ValueError`` if a field that has no
     effect in the port (:data:`~repro_torch.models.config.NO_EFFECT`) is
-    not at its default."""
+    not at its default or ``cfg.tp_mode`` is not one of
+    :data:`~repro_torch.models.config.TP_MODES`."""
     if cfg.family not in PORTED:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} is family {cfg.family!r}, which is "
@@ -83,6 +86,9 @@ def check_family(cfg) -> None:
             f"repro_torch: {moved} would have no effect here: these fields "
             f"only shape JAX compilation (models/config.py); "
             f"leave them at their defaults")
+    if cfg.tp_mode not in TP_MODES:
+        raise ValueError(f"repro_torch: tp_mode {cfg.tp_mode!r} is not one "
+                         f"of {TP_MODES}")
 
 
 def hybrid_layout(cfg):
@@ -151,19 +157,29 @@ def _ffn(bp, h, cfg):
         else mlp(bp["mlp"], h, cfg)
 
 
+def _block_norm(x, w, cfg):
+    """The pre-norm of a decoder block's sub-block: under ``ulysses`` and
+    ``megatron_rs`` the normed stream stays sequence-sharded (the
+    sub-block's own regions gather or reshard it), else :func:`_norm`."""
+    if cfg.tp_mode == "megatron":
+        return _norm(x, w, cfg)
+    return constrain(rms_norm(x, w, cfg.norm_eps), "dp", "sp", None)
+
+
 def decoder_block(bp, x, cfg, positions, window=None):
     """One pre-norm decoder block (full-sequence path).
 
     Under a mesh the post-norm activation is gathered over the sequence
-    (:func:`_norm`) and each sub-block's output is constrained to the
-    sequence-sharded layout before the residual add (:func:`_out`), so
-    that its partial sums are reduce-scattered: the reference's
-    ``opt_collectives`` boundaries, which the port keeps."""
-    h = _norm(x, bp["attn_norm"], cfg)
+    (:func:`_norm`; under ``ulysses`` and ``megatron_rs`` it stays
+    sequence-sharded, :func:`_block_norm`) and each sub-block's output is
+    constrained to the sequence-sharded layout before the residual add
+    (:func:`_out`), so that its partial sums are reduce-scattered: the
+    reference's ``opt_collectives`` boundaries, which the port keeps."""
+    h = _block_norm(x, bp["attn_norm"], cfg)
     h = att.multihead_attention(bp["attn"], h, cfg, positions=positions,
                                 window=window)
     x = constrain(x + _out(h), "dp", "sp", None)
-    h = _norm(x, bp["mlp_norm"], cfg)
+    h = _block_norm(x, bp["mlp_norm"], cfg)
     return constrain(x + _out(_ffn(bp, h, cfg)), "dp", "sp", None)
 
 
@@ -374,12 +390,21 @@ def _maybe_remat(fn, cfg):
     activations not kept) when ``cfg.remat`` is set and grad mode is on:
     the reference's ``jax.checkpoint`` around a block.  Where nothing
     requires grad the checkpoint keeps nothing and computes the same bits.
-    The forward draws no random numbers, so no RNG state is stashed."""
+    The forward draws no random numbers, so no RNG state is stashed.  The
+    recomputation runs under the mesh of the forward (``use_mesh``): the
+    autograd engine runs a CUDA backward on a thread of its own, which
+    does not see the caller's mesh."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
 
     def run(bp, x, *rest):
-        return checkpoint(fn, bp, x, *rest, use_reentrant=False,
+        mesh = current_mesh()
+
+        def under_mesh(*args):
+            with use_mesh(mesh):
+                return fn(*args)
+
+        return checkpoint(under_mesh, bp, x, *rest, use_reentrant=False,
                           preserve_rng_state=False)
 
     return run

@@ -19,6 +19,16 @@ run's DTensors, where it is ``redistribute`` (the counterpart of
 ``with_sharding_constraint``).  A constraint on a dim the mesh axes do
 not divide leaves that dim replicated: DTensor would shard it unevenly
 where GSPMD pads it (see PERF.md §3).
+
+The reference's manual tensor-parallel regions (its ``shard_map``
+micro-kernels) are ``local_map`` regions here, their collectives over the
+model axis's process group in the activation's own dtype:
+:func:`seq_allgather`, :func:`tp_rs_matmul` and :func:`tp_ag_matmuls`,
+and :func:`seq_matmuls`, the Ulysses projections of a sequence-sharded
+stream, which DTensor cannot fold into one tokens view.  Each region
+names the placements of its weights' gradients (the ranks' partial
+sums), as does every ``local_map`` region that reads a replicated input
+with split rows.
 """
 
 from __future__ import annotations
@@ -139,19 +149,26 @@ def use_mesh(mesh):
     """Activate a mesh for :func:`constrain` and the mesh-aware helpers.
     Inside it a plain tensor that meets a DTensor in an op (a mask, an
     ``arange``, a 0-d step count) counts as replicated, as an unsharded
-    array does under JAX's jit."""
+    array does under JAX's jit.  That switch is DTensor's, one for the
+    process: a nested ``use_mesh`` (a remat recomputation on the autograd
+    engine's thread) leaves it to the outer one, whose exit turns it off."""
     prev = getattr(_state, "mesh", None)
     _state.mesh = mesh
     try:
         if mesh is None:
             yield
         else:
+            from torch.distributed.tensor import DTensor
             from torch.distributed.tensor.experimental import (
                 implicit_replication,
             )
 
-            with implicit_replication():
+            if getattr(DTensor._op_dispatcher,
+                       "_allow_implicit_replication", False):
                 yield
+            else:
+                with implicit_replication():
+                    yield
     finally:
         _state.mesh = prev
 
@@ -271,6 +288,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
               for i, pl in enumerate(tokens.placements)]
     return local_map(local, out_placements=out_pl,
                      in_placements=(table.placements, tokens.placements),
+                     in_grad_placements=(_grad_placements(table, tokens),
+                                         tokens.placements),
                      redistribute_inputs=False)(table, tokens)
 
 
@@ -325,6 +344,207 @@ def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x2 = _TokensOverDP.apply(x.reshape(-1, x.shape[-1]))
     y2 = _TokensOverDP.apply(x2 @ w)
     return y2.reshape(*lead, y2.shape[-1])
+
+
+# ---------------------------------------------------- manual TP micro-kernels
+# The reference's shard_map regions, as local_map regions whose
+# collectives run over the model axis's process group in the activation's
+# own dtype.  Each autograd Function below is the other's transpose: the
+# backward of the sequence all-gather is a reduce-scatter onto the
+# sequence, and that of the reduce-scatter an all-gather.
+
+def _wait(t):
+    import torch.distributed._functional_collectives as funcol
+
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_gather(x, dim: int, group):
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.all_gather_tensor(x.contiguous(), dim, group))
+
+
+def _reduce_scatter(x, dim: int, group):
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum", dim,
+                                              group))
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather onto dim 1 over ``group``; backward: reduce-scatter.
+    With ``share`` the gradient arrives whole on every rank (the output is
+    replicated over the group), and each rank reduce-scatters its 1 /
+    size share of it, as a transposed ``shard_map`` divides an unmapped
+    output's cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, share=False):
+        ctx.group, ctx.share = group, share
+        return _all_gather(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.share:
+            g = g / ctx.group.size()
+        return _reduce_scatter(g, 1, ctx.group), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Reduce-scatter onto dim 1 over ``group``; backward: all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, 1, ctx.group), None
+
+
+def _manual_mesh(x):
+    """The active mesh if it has a ``model`` axis and ``x`` is a DTensor
+    (the manual regions' condition), else None."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in _names(mesh) or not is_dtensor(x):
+        return None
+    return mesh
+
+
+def _exact(x, mesh, spec):
+    """``x`` redistributed to exactly ``spec`` (no dim left replicated
+    for unevenness: a manual region needs whole shards)."""
+    if sanitize(mesh, spec, x.shape) != P(*spec, *([None] * (
+            x.ndim - len(spec)))):
+        raise ValueError(f"shape {tuple(x.shape)} does not split evenly "
+                         f"as {spec} on the mesh")
+    want = placements(mesh, spec, x.ndim)
+    return x if list(x.placements) == want else x.redistribute(mesh, want)
+
+
+def _grad_placements(w, x):
+    """The placements of a weight's local gradient in a manual region
+    with the activation ``x``: Partial over each mesh dim where ``x`` is
+    split and ``w`` is whole (each rank's sum over its own rows)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return [Partial() if isinstance(a, Shard) and isinstance(p, Replicate)
+            else p for a, p in zip(x.placements, w.placements)]
+
+
+def seq_allgather(x: torch.Tensor) -> torch.Tensor:
+    """Gather a sequence-sharded activation to full length, explicitly in
+    its own (bf16) dtype: an all-gather over ``model`` (backward: a
+    reduce-scatter).  x: (B, S, d) sharded (dp, model, None) -> (B, S, d)
+    replicated over model.  No-op without an active mesh."""
+    mesh = _manual_mesh(x)
+    if mesh is None:
+        return x
+    from torch.distributed.tensor.experimental import local_map
+
+    dp = _dp_axes(mesh)
+    x = _exact(x, mesh, P(dp, "model", None))
+    group = mesh.get_group("model")
+    return local_map(lambda xl: _SeqGather.apply(xl, group, True),
+                     out_placements=placements(mesh, P(dp, None, None), 3),
+                     in_placements=(x.placements,),
+                     redistribute_inputs=False)(x)
+
+
+def _dp_axes(mesh):
+    return tuple(a for a in ("pod", "data") if a in _names(mesh)) or None
+
+
+def tp_rs_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y = h @ w with a MANUAL reduce-scatter over the model axis, in h's
+    dtype (the Megatron-LM bf16 merge).
+
+    h: (B, S, f) sharded (dp, None, model); w: (f, d) sharded (model,
+    fsdp), gathered over fsdp.  Each rank computes its partial product,
+    rounds it to h's dtype, and the partial sums are reduce-scattered over
+    ``model`` onto the sequence dim.  Returns (B, S, d) sharded (dp,
+    model, None).  The plain product without an active mesh."""
+    mesh = _manual_mesh(h)
+    if mesh is None:
+        return h @ w
+    from torch.distributed.tensor.experimental import local_map
+
+    dp = _dp_axes(mesh)
+    h = _exact(h, mesh, P(dp, None, "model"))
+    w = _exact(w, mesh, P("model", None))
+    group = mesh.get_group("model")
+
+    def local(hl, wl):
+        return _SeqScatter.apply((hl @ wl).to(hl.dtype), group)
+
+    return local_map(local, out_placements=placements(
+        mesh, P(dp, "model", None), 3),
+        in_placements=(h.placements, w.placements),
+        in_grad_placements=(h.placements, _grad_placements(w, h)),
+        redistribute_inputs=False)(h, w)
+
+
+def tp_ag_matmuls(x: torch.Tensor, *ws: torch.Tensor):
+    """Fused (sequence all-gather + n projections) in one manual region.
+
+    x: (B, S, d) sharded (dp, model, None); each w: (d, f) sharded (fsdp,
+    model), gathered over fsdp.  Returns one (B, S, f) output per w,
+    sharded (dp, None, model).  Fusing the gather with the products makes
+    the backward's input-gradient partial sums feed the gather's
+    transpose (a reduce-scatter in x's dtype) directly.  Plain products
+    without an active mesh."""
+    mesh = _manual_mesh(x)
+    if mesh is None:
+        return tuple(x @ w for w in ws)
+    from torch.distributed.tensor.experimental import local_map
+
+    dp = _dp_axes(mesh)
+    x = _exact(x, mesh, P(dp, "model", None))
+    ws = [_exact(w, mesh, P(None, "model")) for w in ws]
+    group = mesh.get_group("model")
+
+    def local(xl, *wls):
+        xg = _SeqGather.apply(xl, group)
+        return tuple(xg @ wl for wl in wls)
+
+    out = placements(mesh, P(dp, None, "model"), 3)
+    return local_map(local, out_placements=tuple(out for _ in ws),
+                     in_placements=(x.placements,) + tuple(
+                         w.placements for w in ws),
+                     in_grad_placements=(x.placements,) + tuple(
+                         _grad_placements(w, x) for w in ws),
+                     redistribute_inputs=False)(x, *ws)
+
+
+def seq_matmuls(x: torch.Tensor, *ws: torch.Tensor):
+    """The Ulysses projections: each rank multiplies its own (B/dp, S/tp,
+    d) block of a sequence-sharded stream by the whole weight, gathered
+    (the weights move, the activation does not).
+
+    x: (B, S, d) sharded (dp, model, None); each w: (d, f).  Returns one
+    (B, S, f) output per w, sharded (dp, model, None); a weight's gradient
+    is its ranks' partial sums, reduced over every axis.  DTensor cannot
+    fold the batch and sequence shards into one tokens view, so the
+    products run on the local blocks.  Plain products without an active
+    mesh."""
+    mesh = _manual_mesh(x)
+    if mesh is None:
+        return tuple(x @ w for w in ws)
+    from torch.distributed.tensor.experimental import local_map
+
+    dp = _dp_axes(mesh)
+    x = _exact(x, mesh, P(dp, "model", None))
+    ws = [_exact(w, mesh, P()) for w in ws]
+    out = placements(mesh, P(dp, "model", None), 3)
+    return local_map(lambda xl, *wls: tuple(xl @ wl for wl in wls),
+                     out_placements=tuple(out for _ in ws),
+                     in_placements=(x.placements,) + tuple(
+                         w.placements for w in ws),
+                     in_grad_placements=(x.placements,) + tuple(
+                         _grad_placements(w, x) for w in ws),
+                     redistribute_inputs=False)(x, *ws)
 
 
 def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

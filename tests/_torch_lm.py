@@ -180,3 +180,18 @@ def prefill_and_decode_match(arch, **kw):
         compare_cache(ct, cache_t, cache_j)
         tok = jnp.argmax(lj, -1).astype(jnp.int32)
     assert cache_t.pos == PROMPT + N_DECODE
+
+
+def numpy_params(cfg, seed):
+    """The reference's stacked parameter tree for ``cfg`` drawn with numpy
+    from ``seed``: normal values over sqrt(fan in) (the last-but-one dim;
+    vectors at 0.5), so that norms and biases are nonzero too."""
+    shapes = jax.eval_shape(lambda: jax_api.init_params(cfg,
+                                                        jax.random.key(0)))
+    rng = np.random.default_rng(seed)
+
+    def draw(s):
+        scale = 0.5 if len(s.shape) < 2 else s.shape[-2] ** -0.5
+        return (scale * rng.standard_normal(s.shape)).astype(np.float32)
+
+    return jax.tree.map(draw, shapes)

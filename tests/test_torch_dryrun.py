@@ -9,7 +9,8 @@ methodology's depth fit, as the reference's ``test_linear_fit_predicts_L3``;
 a world of one held to a real step on the CPU; the
 counting mode gives known collective bytes for known redistributions;
 ``REPRO_DRYRUN`` traces the paper's flagship greedy step on 256 fake
-ranks without allocating its data.
+ranks without allocating its data; each tensor-parallel mode's traced
+train step moves the collectives the mode exists for.
 """
 
 import json
@@ -198,3 +199,94 @@ def test_mesh_moe_dispatch_matches_the_index_path(mesh_moe,
         for shape in ("(2, 1)", "(1, 2)"):
             diff, scale = rank[f"{shape}-{capacity_factor}"]
             assert diff <= 1e-5 * scale, (shape, diff, scale)
+
+
+_TP_MODES = """
+import json, torch
+from repro_torch.compat import make_auto_mesh
+from repro_torch.configs import get_reduced
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import roofline as R
+from repro_torch.launch.mesh import init_fake_world
+from repro_torch.models.config import ShapeConfig
+from repro_torch.sharding import use_mesh
+
+
+class Recorder(R.CostCounter):
+    # each collective's kind, dtype and result elements, besides the sums
+    def __init__(self):
+        super().__init__()
+        self.events = []
+
+    def _count(self, func, args, kwargs, out):
+        super()._count(func, args, kwargs, out)
+        kind = R._COLLECTIVE_KIND.get(func.overloadpacket.__name__)
+        if func.namespace in ("_c10d_functional", "_dtensor", "c10d") \
+                and kind is not None:
+            self.events += [(kind, str(t.dtype).split(".")[-1], t.numel())
+                            for t in R._tensors(out)]
+
+
+init_fake_world(4)
+mesh = make_auto_mesh((2, 2), ("data", "model"), "cpu")
+base = get_reduced("stablelm-3b").replace(dtype="bfloat16")
+out = {}
+for name, over in (("megatron", {}), ("ulysses", {"tp_mode": "ulysses"}),
+                   ("megatron_rs", {"tp_mode": "megatron_rs"}),
+                   ("opt_collectives", {"opt_collectives": True})):
+    cfg = base.replace(**over)
+    fn, mk, _ = D.build_cell(cfg, ShapeConfig("t", 32, 8, "train"), mesh,
+                             n_micro=1)
+    with D.fake_world_mode(), use_mesh(mesh):
+        args = mk()
+        c = Recorder()
+        with c:
+            fn(*args)
+    out[name] = {"detail": c.terms()["collective_detail"],
+                 "events": c.events}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def tp_collectives():
+    """One traced train step of reduced stablelm-3b in bfloat16 (batch 8
+    x 32 tokens, one microbatch, remat) per tensor-parallel mode in a fake
+    (2, 2) ("data", "model") world: each collective's kind, dtype and
+    result elements, and the bytes by kind."""
+    return _run(_TP_MODES)
+
+
+# the local activation (B / dp, S / tp, d) of that step: 4 x 16 x 64
+_ACT = 4 * 16 * 64
+_LAYERS = 2
+
+
+@pytest.mark.parametrize("mode", ["megatron", "ulysses", "megatron_rs",
+                                  "opt_collectives"])
+def test_each_tp_mode_moves_its_collectives(tp_collectives, mode):
+    """megatron_rs merges its sub-blocks by bf16 reduce-scatters of the
+    activation (two a layer forward at least); ulysses moves activations
+    by all-to-all and all-reduces no block activation (local or gathered
+    over the sequence); the norm's
+    sequence all-gather under opt_collectives moves bf16 words (the
+    layout the port keeps at both values).  Prints the collective bytes
+    by kind."""
+    rec = tp_collectives[mode]
+    print(mode, rec["detail"])
+    ev = rec["events"]
+    if mode == "megatron_rs":
+        rs = [e for e in ev if e[0] == "reduce-scatter" and e[2] == _ACT]
+        assert len(rs) >= 2 * _LAYERS and all(e[1] == "bfloat16"
+                                              for e in rs), rs
+    elif mode == "ulysses":
+        # (the vocab-parallel loss all-reduces its (B/dp, S, V/tp) float32
+        # logits' pieces in every mode: not a block activation)
+        assert rec["detail"]["all-to-all"] > 0
+        assert not [e for e in ev if e[0] == "all-reduce"
+                    and e[2] in (_ACT, 2 * _ACT)], ev
+    elif mode == "opt_collectives":
+        ag = [e for e in ev if e[0] == "all-gather" and e[2] == 2 * _ACT]
+        assert len(ag) >= 2 * _LAYERS and all(e[1] == "bfloat16"
+                                              for e in ag), ag
+    assert sum(rec["detail"].values()) > 0

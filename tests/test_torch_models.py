@@ -284,16 +284,33 @@ def test_config_copy_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("scan_layers", False), ("opt_collectives", True),
-    ("moe_bf16_dispatch", True), ("tp_mode", "ulysses"), ("moe_ep", True)])
+    ("scan_layers", False), ("moe_bf16_dispatch", True), ("moe_ep", True),
+    ("tp_mode", "ulysses"), ("tp_mode", "sequence")])
 def test_fields_without_effect_are_refused(field, value):
-    """A field that only shapes JAX compilation or sharding would do
-    nothing here, so the port refuses it away from its default."""
+    """A field that only shapes JAX compilation would do nothing here, so
+    the port refuses it away from its default (``NO_EFFECT``).  The
+    sharding fields take effect: ``moe_ep`` shards the experts over tp
+    (``moe_specs``), ``tp_mode="ulysses"`` builds parameters and a cache,
+    and a ``tp_mode`` the port does not know is refused."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import NO_EFFECT
+
     cfg = get_reduced("granite-3-8b").replace(**{field: value})
-    with pytest.raises(ValueError, match=field):
+    if field in NO_EFFECT or value == "sequence":
+        with pytest.raises(ValueError, match=field):
+            api.init_params(cfg, 0, device="cpu")
+        with pytest.raises(ValueError, match=field):
+            api.init_cache(cfg, 1, 8, device="cpu")
+    elif field == "moe_ep":
+        base = get_reduced("mixtral-8x7b")
+        assert moe.moe_specs(base.replace(moe_ep=True)) != \
+            moe.moe_specs(base)
+        assert moe.moe_specs(base.replace(moe_ep=True))["w_up"][0] == "tp"
         api.init_params(cfg, 0, device="cpu")
-    with pytest.raises(ValueError, match=field):
-        api.init_cache(cfg, 1, 8, device="cpu")
+    else:
+        assert api.init_params(cfg, 0, device="cpu").blocks
+        assert api.init_cache(cfg, 1, 8, device="cpu").self_kv
+    assert NO_EFFECT == ("scan_layers", "moe_bf16_dispatch")
 
 
 def test_layers_match_jax():
