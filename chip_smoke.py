@@ -8,7 +8,8 @@ snapshots: 10.5 GB of S on the card) — the paper's RB-greedy build, then
 the artifact and the ROQ online stage, then the blocked build
 (``strategy="block_greedy"``, block_p = 8), the streamed and randomized
 builds up to the paper's M = 3,276,800 — then the LM serving paths
-(granite-3-8b, mixtral-8x7b at 16 of its 32 layers, recurrentgemma-9b,
+(granite-3-8b, stablelm-3b and starcoder2-15b whole, launch.serve's LM
+mode, mixtral-8x7b at 16 of its 32 layers, recurrentgemma-9b,
 mamba2-780m, llama-3.2-vision-11b and seamless-m4t-medium at full width,
 their prefill self-attention in the flash kernel, the encoder's
 bidirectional), then trains stablelm-3b at full width, and holds each
@@ -167,13 +168,17 @@ JSON line:
              encoder non-causal, MHA 16/16 at D 64 over 4,096 frames) and
              at small ones (f32/bf16/f16, D 16-256, groups 1/4/8/16,
              windows 40-256 inside and across key tiles, non-causal, ragged
-             S, Sq < Skv, non-causal D 64 on whole tiles), each with
-             near-uniform and with peaked logits, each call on the route the
-             rule gives (the general kernel also at the sm90 kernel's
-             shapes); at the serve path's shape and at the encoder's the
-             sm90 kernel and the general one (the first design) timed in
-             turns beside the plain version and SDPA (causal / not), with
-             TFLOP/s and the share of the bound
+             S, Sq < Skv, non-causal D 64 on whole tiles, D 80 / 96 causal,
+             windowed and non-causal), each with near-uniform and with
+             peaked logits, each call on the route the rule gives (the
+             general kernel also at the sm90 kernel's shapes); stablelm-3b's
+             D 80 (MHA 32/32) at its serve cell's (4 x 2,048) and the
+             pipeline's (2 x 2,048) shapes, and D 96 at the first, on the
+             sm90 route, both routes at both logit scales; at the serve
+             path's shape, at the encoder's and at those three the sm90
+             kernel and the general one (the first design) timed in turns
+             beside the plain version and SDPA (causal / not), with TFLOP/s
+             and the share of the bound
   serve      granite-3-8b at full width (bf16, attn_impl="flash", random
              weights from the seed, initialized on the card, the GW S freed
              first): ServeEngine.generate on 4 prompts of 2048 tokens, 32
@@ -181,6 +186,26 @@ JSON line:
              40 flash launches on the sm90 route; prefill logits against
              the einsum (plain) path, two greedy runs equal, every logit
              finite
+  serve_stablelm, serve_starcoder2  the other dense cells (DENSE_CELLS),
+             whole, with serve_moe's gates below: stablelm-3b (32 layers,
+             MHA 32/32, D 80) on 4 prompts of 2,048 tokens, starcoder2-15b
+             (40 layers, GQA 48/4, 31.9 GB) on 4 of 4,096, 32 new tokens
+             each; 32 / 40 flash launches, all sm90; the float32 decode
+             check on stablelm whole and on starcoder2 cut to 8 of its 40
+             layers (its bf16 model freed first: the float32 copy would
+             not fit beside it); the busy share of a traced prefill and 8
+             traced decode steps; starcoder2 again with
+             kv_cache_dtype="int8": the prefill's int8 planes and bf16
+             scales the quantization of the bf16 cache's k / v (within
+             one int8 step, scales within a bf16 eps), 32 decode steps fed
+             the bf16 run's tokens, every logit finite and within
+             INT8_DECODE_RTOL of the bf16 cache's, cache bytes against the
+             bf16 cache's, decode ms beside the bf16 cache's
+  launcher   python -m repro_torch.launch.serve --arch stablelm-3b
+             --device cuda (the LM mode at full width, its default batch,
+             prompt and new tokens) in a subprocess: exit 0, its
+             "generated (4, 16) on cuda:..." line, its sample the tokens
+             of ServeEngine in this process from the same seed and config
   serve_moe, serve_hybrid, serve_ssm  the decoder-only families, each
              model freed before the next (FAMILY_CELLS): mixtral-8x7b at 16
              of its 32 layers (47 GB; whole it would not fit) on 2 prompts
@@ -245,11 +270,11 @@ JSON line:
              embedding gradient finite, nonzero and within 1e-2 relative
              L2 of the one-process one, every stage leaf's gradient
              finite; (b) attn_impl "flash" under no_grad: the same loss
-             check, flash launches counted from 0 just before it by
-             route: 5 ticks x 16 layers x 2 ranks = 160; the step's ms,
-             the shift's ms and bytes staged, each tick's compute and the
-             measured bubble share beside the schedule's 0.20, each
-             rank's peak GB
+             check, flash launches counted from 0 just before it, all on
+             the sm90 route (D 80): 5 ticks x 16 layers x 2 ranks = 160;
+             the step's ms, the shift's ms and bytes staged, each tick's
+             compute and the measured bubble share beside the schedule's
+             0.20, each rank's peak GB
   tp_modes   the tensor-parallel modes on 4 ranks spawned on the card
              (gloo) on a (2, 2) ("data", "model") mesh, the parameters
              distributed with the production shardings, a forward on 4 x
@@ -359,10 +384,27 @@ BF16_FLOPS = 989e12               # H100 SXM, bf16 / f16 tensor cores, dense
 INT32_INSTR_PER_S = 132 * 64 * 1.98e9
 # instructions issued: 4 warp-instructions an SM a clock, 32 lanes each
 ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
-# The serving cell: granite-3-8b at full width, 4 requests of 2048-token
-# prompts, 32 new tokens each (the KV cache holds prompt + new tokens).
-LM_ARCH = "granite-3-8b"
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# The dense serving cells, whole at full width (bf16, random weights from
+# the seed): (phase, arch, batch, prompt, new tokens, layers of the float32
+# decode check (None: all), an int8 KV-cache run).  granite-3-8b's row is
+# the serve phase (held to the einsum path); stablelm-3b (MHA 32/32 at D
+# 80: small-model chat and completion) and starcoder2-15b (GQA 48/4,
+# 31.9 GB: code completion over repository-sized context) take
+# family_serve_phase's gates.  starcoder2's float32 copy (63.8 GB) does not
+# fit beside its bf16 weights, so its float32 decode check runs at full
+# width on the model cut to 8 of its 40 layers, the bf16 model freed
+# first.  If memory presses, the batch shrinks, never the width or depth.
+DENSE_CELLS = (
+    ("serve", "granite-3-8b", 4, 2048, 32, None, False),
+    ("serve_stablelm", "stablelm-3b", 4, 2048, 32, None, False),
+    ("serve_starcoder2", "starcoder2-15b", 4, 4096, 32, 8, True),
+)
+LM_ARCH = DENSE_CELLS[0][1]
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = DENSE_CELLS[0][2:5]
+# launch.serve's LM mode, run as a subprocess at its default batch (4),
+# prompt (32) and new tokens (16), and again in this process
+LAUNCH_ARCH = "stablelm-3b"
+LAUNCH_BATCH, LAUNCH_PROMPT, LAUNCH_GEN = 4, 32, 16
 # The decoder-only families at full width (bf16, random weights from the
 # seed): (phase, arch, config overrides, batch, prompt, new tokens).
 # mixtral-8x7b's 32 layers take 93.4 GB in bf16, past one 80 GB card: 16 of
@@ -398,12 +440,15 @@ TRAIN_LAUNCH_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "30",
                      "--log-every", "30", "--device", "cuda"]
 # (B, Hq, Hkv, Sq, Skv, D, causal, window) of the small flash checks:
 # groups 1, 4 and 8; ragged S; a window of 48 against key tiles of 64; Sq <
-# Skv end-aligned; non-causal, with Sq > Skv too; D 16 to 256; one query.
+# Skv end-aligned; non-causal, with Sq > Skv too; D 16 to 256 (MHA at D 80
+# over several tiles, D 96 non-causal); one query.
 FA_CASES = [
     (2, 4, 4, 200, 200, 64, True, None),
     (1, 8, 2, 256, 256, 128, True, None),
     (1, 8, 1, 130, 130, 16, True, 48),
     (2, 4, 1, 64, 300, 80, True, 48),
+    (1, 4, 4, 300, 300, 80, True, None),
+    (1, 4, 2, 150, 200, 96, False, None),
     (1, 4, 2, 100, 100, 256, False, None),
     (1, 2, 2, 80, 48, 32, False, None),
     (1, 4, 4, 1, 77, 64, True, None),
@@ -413,7 +458,9 @@ FA_CASES = [
 # non-causal with Sq > Skv; recurrentgemma's MQA (16 query heads on one kv
 # head) at D 256 with a window inside one key tile and one across several;
 # mixtral's GQA 32/8 at D 128 with a window below Sq; non-causal MHA at D
-# 64 on whole query and key tiles (the encoder's mode: no tile masked).
+# 64 on whole query and key tiles (the encoder's mode: no tile masked); D
+# 80 and 96 (the D 128 kernel on zero-filled columns) causal, windowed
+# inside and across key tiles and non-causal, Sq above and below Skv.
 SM90_CASES = [
     (1, 8, 2, 333, 333, 128, True, None),
     (1, 8, 1, 300, 300, 128, True, 48),
@@ -424,6 +471,11 @@ SM90_CASES = [
     (2, 16, 1, 530, 530, 256, True, 200),
     (1, 32, 8, 700, 700, 128, True, 256),
     (2, 16, 16, 384, 512, 64, False, None),
+    (1, 4, 4, 333, 333, 80, True, None),
+    (1, 8, 2, 300, 300, 80, True, 48),
+    (2, 4, 4, 190, 130, 80, False, None),
+    (1, 8, 2, 70, 390, 96, True, 200),
+    (1, 4, 4, 129, 257, 96, False, None),
 ]
 
 
@@ -1023,10 +1075,11 @@ def check_flash(q, k, v, causal, window, qk_scale, general=False) -> float:
 def lm_kernel_phase(dev) -> dict:
     """flash_attention's two kernels vs the plain version at small shapes,
     at the serve path's, the family cells' and the pipeline phase's; the
-    two kernels timed in
-    turns at the serve path's shape and at the encoder's (non-causal).
-    Returns the timing entries of both, the encoder's under
-    ``"noncausal"``."""
+    two kernels timed in turns at the serve path's shape, at the
+    encoder's (non-causal) and at stablelm-3b's D 80 (and the same at D
+    96).  Returns the timing entries of both, the encoder's under
+    ``"noncausal"``, the others' under ``"d80"``, ``"d80_pipeline"`` and
+    ``"d96"``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1085,20 +1138,30 @@ def lm_kernel_phase(dev) -> dict:
                 if not causal:
                     enc_err = max(enc_err, e)
             torch.cuda.empty_cache()
-    # the pipeline phase's attention: stablelm-3b's MHA 32/32 at D 80 over
-    # PIPE_B x PIPE_SEQ, through the default entry and the general one
+    # stablelm-3b's MHA 32/32 at D 80 (the sm90 kernel's D 128 build on
+    # zero-filled columns) at its serve cell's prefill and at the pipeline
+    # phase's, and the same MHA at D 96 (no configuration has it), through
+    # the default entry and the general one at both qk scales; each then
+    # timed like the serve path's shape
     pc = get_config(PIPE_ARCH)
-    for qs in FA_QK_SCALES:
-        pin = fa_inputs(gen, PIPE_B, pc.n_heads, pc.n_kv_heads, PIPE_SEQ,
-                        PIPE_SEQ, pc.hd, torch.bfloat16, dev, qs)
-        e = check_flash(*pin, True, None, qs)
-        if fa_ops.kernel_route(pin[0].dtype, pc.hd,
-                               fa_ops.aligned16(*pin)) == "sm90":
-            err = max(err, e)
-        else:
-            err_general = max(err_general, e)
-        err_general = max(err_general, check_flash(*pin, True, None, qs,
+    by_dim = {}
+    for key, n_batch, n, hd in (
+            ("d80", DENSE_CELLS[1][2], DENSE_CELLS[1][3], pc.hd),
+            ("d80_pipeline", PIPE_B, PIPE_SEQ, pc.hd),
+            ("d96", DENSE_CELLS[1][2], DENSE_CELLS[1][3], 96)):
+        e_sm90 = e_general = 0.0
+        for qs in FA_QK_SCALES[::-1]:   # the near-uniform ones timed
+            pin = fa_inputs(gen, n_batch, pc.n_heads, pc.n_kv_heads, n, n,
+                            hd, torch.bfloat16, dev, qs)
+            check(fa_ops.kernel_route(pin[0].dtype, hd,
+                                      fa_ops.aligned16(*pin)) == "sm90",
+                  f"flash_attention: stablelm's views at D {hd} are not on "
+                  f"the sm90 route")
+            e_sm90 = max(e_sm90, check_flash(*pin, True, None, qs))
+            e_general = max(e_general, check_flash(*pin, True, None, qs,
                                                    general=True))
+        by_dim[key] = time_flash(*pin, True, e_sm90, e_general)
+        err, err_general = max(err, e_sm90), max(err_general, e_general)
         del pin
         torch.cuda.empty_cache()
     q, k, v = fa_inputs(gen, B, hq, hkv, S, S, D, torch.bfloat16, dev)
@@ -1106,6 +1169,9 @@ def lm_kernel_phase(dev) -> dict:
     err_general = max(err_general, check_flash(
         q, k, v, True, None, FA_QK_SCALES[0], general=True))
     out = time_flash(q, k, v, True, err, err_general)
+    for name in out:
+        for key, timing in by_dim.items():
+            out[name][key] = timing[name]
     del q, k, v
     torch.cuda.empty_cache()
     # the encoder's bidirectional attention, timed the same way
@@ -1292,6 +1358,53 @@ def serve_phase(dev, reset_counts, read_counts) -> dict:
     return launches
 
 
+def launcher_phase(dev) -> None:
+    """``python -m repro_torch.launch.serve --arch LAUNCH_ARCH --device
+    cuda`` (the LM mode, full width, the launcher's default batch, prompt
+    and new tokens; attn_impl "auto", einsum at this length) in a
+    subprocess: it exits 0, prints its ``generated (4, 16) on cuda:...``
+    line, and its sample's tokens are those of ServeEngine in this process
+    from the same seed and config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving import ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         LAUNCH_ARCH, "--device", "cuda"], env=dict(os.environ,
+                                                   PYTHONPATH=src),
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"launcher: launch.serve --arch {LAUNCH_ARCH} "
+          f"exited {p.returncode}: {p.stderr[-2000:]}")
+    lines = p.stdout.splitlines()
+    generated = [ln for ln in lines if ln.startswith("generated ")]
+    want = f"generated ({LAUNCH_BATCH}, {LAUNCH_GEN}) on cuda:"
+    check(len(generated) == 1 and generated[0].startswith(want),
+          f"launcher: no {want!r} line in {lines}")
+    sample = [json.loads(ln[len("sample:"):]) for ln in lines
+              if ln.startswith("sample:")]
+    cfg = get_config(LAUNCH_ARCH)
+    params = api.init_params(cfg, SEED, device=dev)
+    eng = ServeEngine(cfg, params, max_len=LAUNCH_PROMPT + LAUNCH_GEN + 1)
+    batch = api.make_batch(cfg, SEED, LAUNCH_BATCH, LAUNCH_PROMPT,
+                           device=dev)
+    toks = eng.generate(batch, LAUNCH_GEN, temperature=0.0, seed=SEED)
+    check(sample == [toks[0].tolist()],
+          f"launcher: its sample {sample} is not the in-process "
+          f"{toks[0].tolist()}")
+    emit("launcher", arch=LAUNCH_ARCH, attn_impl=cfg.attn_impl,
+         params_b=cfg.param_count() / 1e9, batch=LAUNCH_BATCH,
+         prompt=LAUNCH_PROMPT, new_tokens=LAUNCH_GEN, wall_s=wall,
+         line=generated[0], sample=sample[0], in_process_equal=True)
+    del params, eng
+    torch.cuda.empty_cache()
+
+
 def _tree_tensors(tree):
     """Every tensor of a parameter / cache tree (NamedTuples, dicts, lists)."""
     if isinstance(tree, torch.Tensor):
@@ -1453,12 +1566,111 @@ def open_cross_gates(params, dev):
         dict(cp, gate=torch.atanh(t)) for cp, t in zip(params.cross, u)])
 
 
+# decode steps of a dense cell's traced busy share
+BUSY_DECODE_STEPS = 8
+# The int8 KV cache's decode logits against the model-dtype cache's, the
+# same tokens fed: the largest row's relative L2 over the decode steps.
+# Predicted 5e-2 before it was measured; starcoder2-15b whole gave
+# 1.30-1.36e-2 at every one of its 32 steps on the H100 (PERF.md), so the
+# gate is 2.2x that.
+INT8_DECODE_RTOL = 3e-2
+
+
+def traced_busy(fn) -> float:
+    """The card's busy share of one call of ``fn``, traced by
+    torch.profiler (whose cost is included)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return busy_share(prof, wall)
+
+
+def int8_cache_run(phase, cfg, params, batch, max_len, fed, outs,
+                   model_ms) -> dict:
+    """The same prompts with kv_cache_dtype="int8": the prefill, then one
+    in-place decode step a token of ``fed`` (the model-dtype run's tokens,
+    whose step logits are ``outs``).  Gates: after the prefill each layer's
+    int8 k / v planes are the port's quantization (quantize_kv) of the
+    model-dtype cache's k / v at the prompt's positions, within one int8
+    step in under 1e-3 of their values, and the bf16 scales within a bf16
+    eps; every decode logit finite; each step's logits within
+    INT8_DECODE_RTOL (a row's relative L2) of the model-dtype run's.
+    Returns the run's record: cache bytes against the model-dtype cache's,
+    decode ms a token against ``model_ms``."""
+    from repro_torch.models import api
+    from repro_torch.models.attention import quantize_kv
+
+    c8 = cfg.replace(kv_cache_dtype="int8")
+    S = batch["tokens"].shape[1]
+    logits_m, cache_m = api.prefill(cfg, params, batch, max_len=max_len)
+    logits8, cache8 = api.prefill(c8, params, batch, max_len=max_len)
+    eps = torch.finfo(torch.bfloat16).eps
+    off, n_off, n, scale_rel = 0, 0, 0, 0.0
+    for cm, cq in zip(cache_m.self_kv, cache8.self_kv):
+        check(cq.k.dtype == cq.v.dtype == torch.int8
+              and cq.k_scale.dtype == cq.v_scale.dtype == torch.bfloat16,
+              f"{phase} int8: cache planes {cq.k.dtype} / {cq.k_scale.dtype}")
+        for name in ("k", "v"):
+            want, want_scale = quantize_kv(getattr(cm, name)[:, :S])
+            d = (getattr(cq, name)[:, :S].int() - want.int()).abs()
+            off = max(off, int(d.max()))
+            n_off += int((d > 0).sum())
+            n += d.numel()
+            scale_rel = max(scale_rel, float((
+                getattr(cq, name + "_scale")[:, :S].float()
+                - want_scale.float()).abs().div(want_scale.float()).max()))
+    check(off <= 1 and n_off < 1e-3 * n and scale_rel <= eps,
+          f"{phase} int8: the prefill's cache is not the quantized "
+          f"model-dtype cache: planes up to {off} steps off ({n_off} of "
+          f"{n}), scales {scale_rel} relative")
+    model_bytes = sum(t.nbytes for c in cache_m.self_kv for t in (c.k, c.v))
+    int8_bytes = sum(t.nbytes for c in cache8.self_kv
+                     for t in (c.k, c.v, c.k_scale, c.v_scale))
+    prefill_rel = float(row_rel_errors(logits8, logits_m).max())
+    del cache_m, logits_m, logits8
+    steps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tok in fed:
+        step_logits, cache8 = api.decode_step(c8, params, tok, cache8,
+                                              inplace=True)
+        steps.append(step_logits)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(fed)
+    check(all(bool(torch.isfinite(o).all()) for o in steps),
+          f"{phase} int8: decode logits not finite")
+    rel = [float(row_rel_errors(a, b).max()) for a, b in zip(steps, outs)]
+    check(max(rel) <= INT8_DECODE_RTOL,
+          f"{phase} int8: decode logits against the model-dtype cache's, "
+          f"rows up to {max(rel)} > {INT8_DECODE_RTOL}")
+    del cache8, steps
+    torch.cuda.empty_cache()
+    return {"prefill_plane_steps_off_max": off,
+            "prefill_plane_share_off": n_off / n,
+            "prefill_scale_rel_max": scale_rel,
+            "prefill_logits_row_rel_max": prefill_rel,
+            "decode_steps": len(fed), "decode_row_rel_max": max(rel),
+            "decode_row_rel_by_step": rel,
+            "decode_row_rel_tol": INT8_DECODE_RTOL,
+            "cache_gb": int8_bytes / 1e9,
+            "model_dtype_cache_gb": model_bytes / 1e9,
+            "cache_ratio": int8_bytes / model_bytes,
+            "decode_ms_per_token": ms,
+            "model_dtype_decode_ms_per_token": model_ms}
+
+
 def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
-                       reset_counts, read_counts) -> dict:
-    """One decoder-only family at full width (bf16, attn_impl="flash",
-    random weights from the seed, initialized on the card) through
-    ServeEngine.generate; returns the launches of the generate run,
-    counted from 0 just before it.
+                       reset_counts, read_counts, f32_layers=None,
+                       int8=False) -> dict:
+    """One model at full width (bf16, attn_impl="flash", random weights
+    from the seed, initialized on the card) through ServeEngine.generate:
+    a family's cell (FAMILY_CELLS) or a dense one (DENSE_CELLS); returns
+    the launches of the generate run, counted from 0 just before it.
 
     Gates: the flash launches of the run are the model's attention layers
     (one prefill), all on the sm90 route; two greedy runs give equal
@@ -1488,7 +1700,12 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     recurrent SSD / RG-LRU against the chunked / scanned ones, and the
     recurrent state carries them from step to step), float32 on the first
     prompt gated at F32_DECODE_TOL.  moe is exempt: its prefill drops
-    pairs that decode keeps.
+    pairs that decode keeps.  With ``f32_layers`` the float32 check runs
+    on the model cut to that many layers at full width (from the seed),
+    the bf16 model freed first: its float32 copy would not fit beside it.
+
+    dense: the card's busy share of a traced prefill and of traced decode
+    steps; with ``int8`` the int8 KV-cache run (int8_cache_run).
 
     vlm and encdec: the batch carries the stub vision / frame embeddings
     (make_batch, bf16 from the seed).  Each vlm cross gate is set first so
@@ -1505,9 +1722,9 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     from repro_torch.serving import ServeEngine
 
     check(cfg.dtype == "bfloat16" and cfg.family in (
-        "moe", "ssm", "hybrid", "vlm", "encdec"),
+        "dense", "moe", "ssm", "hybrid", "vlm", "encdec"),
           f"{phase}: unexpected config {cfg}")
-    n_attn = {"moe": cfg.n_layers, "ssm": 0,
+    n_attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
               "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
               "vlm": cfg.n_layers // max(cfg.cross_every, 1)
               * cfg.cross_every,
@@ -1683,31 +1900,6 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     copying_ms, fed_copying, _ = decode(False)
     check(all(torch.equal(a, b) for a, b in zip(fed, fed_copying)),
           f"{phase}: in-place and functional decode steps differ")
-    # decode step i (from 1) against the prefill (a full forward) over the
-    # prompt + i tokens: in bf16 reported, in float32 (the same weights,
-    # cast exactly) on the first prompt gated
-    vs_forward, vs_forward_f32, cross_live_f32 = {}, {}, None
-    if cfg.family != "moe":
-        steps = (1, 8, gen_len)
-        for i in steps:
-            seq = torch.cat([batch["tokens"]] + [t[:, None] for t in fed[:i]],
-                            dim=1)
-            full, c = api.prefill(cfg, params, {"tokens": seq, **extras},
-                                  max_len=seq.shape[1])
-            del c
-            vs_forward[i] = float(row_rel_errors(outs[i - 1], full).max())
-        vs_forward_f32, cross_live_f32 = decode_vs_forward_f32(
-            cfg, params, batch["tokens"][:1], [t[:1] for t in fed], steps,
-            {k: t[:1] for k, t in extras.items()})
-        worst = max(vs_forward_f32.values())
-        check(worst <= F32_DECODE_TOL,
-              f"{phase}: float32 decode steps vs the forward over the prompt "
-              f"and the tokens fed: {vs_forward_f32} > {F32_DECODE_TOL}")
-        check(cross_live_f32 is None or cross_live_f32
-              > CROSS_LIVE_F32_TOLS * F32_DECODE_TOL,
-              f"{phase}: in float32 the {'/'.join(extras)} zeroed move the "
-              f"first request's logits by only {cross_live_f32} <= "
-              f"{CROSS_LIVE_F32_TOLS} x {F32_DECODE_TOL}")
 
     # the least time of a decode step: each weight read once (a tied head
     # reads the whole embedding; an untied one reads one row a token of
@@ -1725,6 +1917,61 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
     # with the caches read too: every KV slot (decode reads the whole
     # cache), the recurrent states and the cross K/V
     read_all_ms = (read + cache_bytes) / HBM_BYTES_PER_S * 1e3
+
+    busy = int8_run = None
+    if cfg.family == "dense":
+        def decode_steps():
+            """BUSY_DECODE_STEPS in-place steps from a fresh prefill (made
+            before the trace), fed the run's tokens."""
+            _, cache = api.prefill(cfg, params, batch, max_len=max_len)
+
+            def run():
+                c = cache
+                for t in fed[:BUSY_DECODE_STEPS]:
+                    _, c = api.decode_step(cfg, params, t, c, inplace=True)
+            return run
+
+        busy = {"prefill": traced_busy(lambda: api.prefill(
+                    cfg, params, batch, max_len=max_len)),
+                "decode": traced_busy(decode_steps()),
+                "decode_steps": BUSY_DECODE_STEPS}
+    if int8:
+        int8_run = int8_cache_run(phase, cfg, params, batch, max_len, fed,
+                                  outs, decode_ms)
+    # decode step i (from 1) against the prefill (a full forward) over the
+    # prompt + i tokens: in bf16 reported, in float32 (the same weights,
+    # cast exactly) on the first prompt gated
+    vs_forward, vs_forward_f32, cross_live_f32 = {}, {}, None
+    if cfg.family != "moe":
+        steps = (1, 8, gen_len)
+        for i in steps:
+            seq = torch.cat([batch["tokens"]] + [t[:, None] for t in fed[:i]],
+                            dim=1)
+            full, c = api.prefill(cfg, params, {"tokens": seq, **extras},
+                                  max_len=seq.shape[1])
+            del c
+            vs_forward[i] = float(row_rel_errors(outs[i - 1], full).max())
+        f32_cfg, f32_params = cfg, params
+        if f32_layers is not None:
+            # the bf16 model freed, the float32 check's model cut in depth
+            eng = params = f32_params = None
+            torch.cuda.empty_cache()
+            f32_cfg = cfg.replace(n_layers=f32_layers)
+            f32_params = api.init_params(f32_cfg, SEED, device=dev)
+        vs_forward_f32, cross_live_f32 = decode_vs_forward_f32(
+            f32_cfg, f32_params, batch["tokens"][:1], [t[:1] for t in fed],
+            steps, {k: t[:1] for k, t in extras.items()})
+        del f32_params
+        worst = max(vs_forward_f32.values())
+        check(worst <= F32_DECODE_TOL,
+              f"{phase}: float32 decode steps vs the forward over the prompt "
+              f"and the tokens fed: {vs_forward_f32} > {F32_DECODE_TOL}")
+        check(cross_live_f32 is None or cross_live_f32
+              > CROSS_LIVE_F32_TOLS * F32_DECODE_TOL,
+              f"{phase}: in float32 the {'/'.join(extras)} zeroed move the "
+              f"first request's logits by only {cross_live_f32} <= "
+              f"{CROSS_LIVE_F32_TOLS} x {F32_DECODE_TOL}")
+
     emit(phase, arch=cfg.name, family=cfg.family, dtype=cfg.dtype,
          n_layers=cfg.n_layers, attn_impl=cfg.attn_impl,
          params_b=cfg.param_count() / 1e9, weight_gb=weight_bytes / 1e9,
@@ -1771,6 +2018,9 @@ def family_serve_phase(phase, cfg, batch_size, prompt, gen_len, dev, smi,
          decode_vs_forward=vs_forward,
          decode_vs_forward_f32=vs_forward_f32,
          decode_vs_forward_f32_tol=F32_DECODE_TOL,
+         decode_f32_layers=(None if cfg.family == "moe" else
+                            f32_layers or cfg.n_layers),
+         busy_share=busy, int8_cache=int8_run,
          attention_layer_rel_max=layer_rel, sample=toks[0, :8].tolist(),
          nvidia_smi=smi)
     del params, eng, logits, outs
@@ -4101,8 +4351,8 @@ def pipeline_phase(dev, smi) -> dict:
     L2 of the one-process one, every stage leaf's gradient finite; (b)
     with flash under no_grad, the loss within PIPE_LOSS_RTOL of the same
     one-process einsum loss (lm_kernel_phase holds the kernel itself to
-    the plain attention at this shape), every flash launch counted by
-    route: 5 ticks x 16 layers x 2 ranks.  Returns (b)'s
+    the plain attention at this shape), every flash launch on the sm90
+    route (D 80): 5 ticks x 16 layers x 2 ranks.  Returns (b)'s
     launches summed over the ranks."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_ranks
@@ -4136,10 +4386,10 @@ def pipeline_phase(dev, smi) -> dict:
     # one launch a layer a tick on each stage: 5 x 16 x 2
     want = n_ticks * get_config(PIPE_ARCH).n_layers
     check(launches["flash_attention"] == want
-          and launches["flash_attention_sm90"]
-          + launches["flash_attention_general"] == want,
+          and launches["flash_attention_sm90"] == want,
           f"pipeline (b): {launches['flash_attention']} flash launches, "
-          f"not {want}")
+          f"{launches['flash_attention_sm90']} on the sm90 route, not "
+          f"{want} all sm90")
     emit("pipeline", arch=PIPE_ARCH, stages=PIPE_STAGES, micro=PIPE_MICRO,
          batch=PIPE_B, seq=PIPE_SEQ, backend=ranks[0]["backend"],
          reference=ref,
@@ -4923,14 +5173,23 @@ def main() -> None:
     timings.update(lm_kernel_phase(dev))
     serve_launches = serve_phase(dev, reset_counts, read_counts)
 
-    # --- the other families (moe, hybrid, ssm, vlm, encdec) at full width,
-    # each model freed before the next
+    # --- the other dense cells (stablelm-3b, starcoder2-15b whole), then
+    # the launcher's LM mode, then the other families (moe, hybrid, ssm,
+    # vlm, encdec) at full width, each model freed before the next
     from repro_torch.configs import get_config
     family_launches = {
         phase: family_serve_phase(
+            phase, get_config(arch).replace(attn_impl="flash"), batch,
+            prompt, gen, dev, smi, reset_counts, read_counts,
+            f32_layers=f32_layers, int8=int8)
+        for phase, arch, batch, prompt, gen, f32_layers, int8
+        in DENSE_CELLS[1:]}
+    launcher_phase(dev)
+    family_launches.update({
+        phase: family_serve_phase(
             phase, get_config(arch).replace(attn_impl="flash", **over),
             batch, prompt, gen, dev, smi, reset_counts, read_counts)
-        for phase, arch, over, batch, prompt, gen in FAMILY_CELLS}
+        for phase, arch, over, batch, prompt, gen in FAMILY_CELLS})
 
     # --- the trainer: stablelm-3b whole on the card, the launcher's crash
     # and resume, the card against the CPU
@@ -5038,7 +5297,9 @@ def main() -> None:
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
                         **{x: t[x] for x in ("by_batch", "stacked",
-                                             "noncausal") if x in t}})
+                                             "noncausal", "d80",
+                                             "d80_pipeline", "d96")
+                                   if x in t}})
         if name == "flash_attention":
             # the encoder's bidirectional launches (either route)
             kernels[-1]["noncausal_launches_by_path"] = {

@@ -1,5 +1,5 @@
 // flash_attention_sm90: causal / sliding-window GQA attention for Hopper,
-// the bf16 / f16 route at head dims 64, 128 and 256.
+// the bf16 / f16 route at head dims 64, 80, 96, 128 and 256.
 //
 // Replaces, with flash_attention.cu (the general route: f32, the other
 // head dims, unaligned views), the Pallas TPU kernel
@@ -46,6 +46,14 @@
 //     query tile the q heads in head order, so the Hq / Hkv heads that share
 //     a kv head run side by side and share K and V in L2.  Key tiles that
 //     causality or the window rule out for a whole item are never loaded.
+//   * Head dims 80 and 96 (stablelm-3b's 80) run the D 128 kernel on tensor
+//     maps whose D extent is the true D: TMA fills the boxes' columns past
+//     D with zeros (no HBM bytes) and does not store them, so Q K^T adds
+//     exact zeros and P V's extra columns are dropped; each output element
+//     has the bits of the D 128 kernel on zero-padded inputs.  The scale is
+//     the caller's (the wrapper's default is the true D's).  It costs the
+//     D 128 kernel's tensor-core work: 1.6x the products at D 80, 1.33x at
+//     D 96.
 #include "common.cuh"
 #include "sm90.cuh"  // mbarriers, named barriers, the tensor-map encoder
 
@@ -613,7 +621,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ------------------------------------------------------------------- host
 // The 4-D map (D, S, H, B) of one operand given its (B, H, S, D) element
 // strides; boxes of 64 x rows x 1 x 1, 128-byte swizzle; loads read zeros
-// past S, stores write nothing there.
+// past D and S, stores write nothing there.
 bool make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr,
               long long B, long long H, long long S, long long D,
               const long long* st, int rows) {
@@ -642,19 +650,21 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr,
   return true;
 }
 
+// The kernel built for head dim D on operands of head dim d <= D (d < D:
+// the maps' columns d..D-1 load as zeros and are not stored).
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              long long B, long long Hq, long long Hkv, long long Sq,
-             long long Skv, const long long* strides, int causal, int window,
-             float scale, void* stream) {
+             long long Skv, long long d, const long long* strides,
+             int causal, int window, float scale, void* stream) {
   const CUtensorMapDataType dt = std::is_same_v<T, __half>
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tmq, tmk, tmv, tmo;
-  if (!make_map(&tmq, dt, q, B, Hq, Sq, D, strides, BQ) ||
-      !make_map(&tmo, dt, o, B, Hq, Sq, D, strides + 12, BQ / 2) ||
-      !make_map(&tmk, dt, k, B, Hkv, Skv, D, strides + 4, Tiles<D>::BK) ||
-      !make_map(&tmv, dt, v, B, Hkv, Skv, D, strides + 8, Tiles<D>::BK))
+  if (!make_map(&tmq, dt, q, B, Hq, Sq, d, strides, BQ) ||
+      !make_map(&tmo, dt, o, B, Hq, Sq, d, strides + 12, BQ / 2) ||
+      !make_map(&tmk, dt, k, B, Hkv, Skv, d, strides + 4, Tiles<D>::BK) ||
+      !make_map(&tmv, dt, v, B, Hkv, Skv, d, strides + 8, Tiles<D>::BK))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.Hq = (int)Hq;
@@ -696,13 +706,15 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
            float scale, void* stream) {
   switch (D) {
     case 64:
-      return launch_d<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, causal,
-                             window, scale, stream);
+      return launch_d<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
+                             causal, window, scale, stream);
+    case 80:
+    case 96:
     case 128:
-      return launch_d<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+      return launch_d<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
                               causal, window, scale, stream);
     case 256:
-      return launch_d<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+      return launch_d<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
                               causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -714,7 +726,8 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
 // q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D), o like q, each given by its
 // element strides (strides[0:4] q, [4:8] k, [8:12] v, [12:16] o; the last
 // of each is 1, the others and the base pointers multiples of 16 bytes),
-// D in {64, 128, 256}.  Returns the CUDA error of the launch (0: none).
+// D in {64, 80, 96, 128, 256}.  Returns the CUDA error of the launch (0:
+// none).
 #define FA_ENTRY(NAME, T)                                                   \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
                       long long B, long long Hq, long long Hkv,             \

@@ -8,11 +8,16 @@ one of the two kernels, by the fixed rule of :func:`kernel_route`, or
 raises:
 
 * ``"sm90"`` (``csrc/flash_attention_sm90.cu``: TMA, ``wgmma``, O in
-  registers) takes bf16 / f16 at head dims 64, 128 and 256 when every base
-  pointer and every stride but D's is a multiple of 16 bytes;
+  registers) takes bf16 / f16 at head dims 64, 80, 96, 128 and 256 when
+  every base pointer and every stride but D's is a multiple of 16 bytes
+  (80 and 96, stablelm's 80 among them, run its D 128 build on zero
+  columns that TMA fills and never stores);
 * ``"general"`` (``csrc/flash_attention.cu``: WMMA for 16-bit, FMA for f32)
-  takes the rest: f32, the other head dims (16 to 256 in steps of 16,
-  stablelm's 80 among them) and unaligned views.
+  takes the rest: f32, the other head dims (16 to 256 in steps of 16) and
+  unaligned views.
+
+A CUDA call on the sm90 route that fails to build or launch raises; it
+never falls back to the general kernel.
 
 ``launches`` counts calls that launched either kernel; ``launches_sm90``
 and ``launches_general`` count them by route, ``launches_noncausal`` those
@@ -47,7 +52,7 @@ launches_sm90 = 0
 launches_general = 0
 launches_noncausal = 0
 
-SM90_HEAD_DIMS = (64, 128, 256)
+SM90_HEAD_DIMS = (64, 80, 96, 128, 256)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float16: "f16"}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [
@@ -74,8 +79,8 @@ def aligned16(*tensors: torch.Tensor) -> bool:
 
 def kernel_route(dtype: torch.dtype, head_dim: int, aligned: bool) -> str:
     """The kernel a CUDA call takes: ``"sm90"`` for bf16 / f16 at a head dim
-    of 64, 128 or 256 with 16-byte aligned pointers and strides, else
-    ``"general"``."""
+    of 64, 80, 96, 128 or 256 with 16-byte aligned pointers and strides,
+    else ``"general"``."""
     if (dtype in (torch.bfloat16, torch.float16)
             and head_dim in SM90_HEAD_DIMS and aligned):
         return "sm90"

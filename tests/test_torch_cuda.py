@@ -521,12 +521,15 @@ def test_block_driver_on_card_matches_cpu(cuda, dtype):
 # (B, Hq, Hkv, Sq, Skv, D, causal, window): groups 1, 4 and 8; ragged S; a
 # window of 48 against key tiles of 64 (whole rows of a tile masked);
 # Sq < Skv end-aligned; non-causal, with Sq > Skv too; D from 16 to 256
-# (stablelm's 80 included); a single query row.
+# (stablelm's 80 included, and MHA at D 80 over several query and key
+# tiles); a single query row.
 FA_CASES = [
     (2, 4, 4, 200, 200, 64, True, None),
     (1, 8, 2, 256, 256, 128, True, None),
     (1, 8, 1, 130, 130, 16, True, 48),
     (2, 4, 1, 64, 300, 80, True, 48),
+    (1, 4, 4, 300, 300, 80, True, None),
+    (1, 4, 2, 150, 200, 96, False, None),
     (1, 4, 2, 100, 100, 256, False, None),
     (1, 2, 2, 80, 48, 32, False, None),
     (1, 4, 4, 1, 77, 64, True, None),
@@ -648,6 +651,14 @@ SM90_CASES = [
     (2, 16, 1, 530, 530, 256, True, 200),
     (1, 32, 8, 700, 700, 128, True, 256),
     (2, 16, 16, 384, 512, 64, False, None),
+    # D 80 and 96 (the D 128 kernel on zero-filled columns): stablelm's MHA
+    # causal, windows inside and across key tiles, non-causal with Sq >
+    # Skv and with Sq < Skv, GQA 8/2 end-aligned
+    (1, 4, 4, 333, 333, 80, True, None),
+    (1, 8, 2, 300, 300, 80, True, 48),
+    (2, 4, 4, 190, 130, 80, False, None),
+    (1, 8, 2, 70, 390, 96, True, 200),
+    (1, 4, 4, 129, 257, 96, False, None),
 ]
 
 
@@ -657,6 +668,28 @@ SM90_CASES = [
 def test_flash_attention_sm90_kernel_matches_plain(cuda, dtype, case):
     """Every case takes the sm90 route and holds to the same tolerance."""
     _fa_run_cases(cuda, dtype, case, fa_ops.flash_attention, "launches_sm90")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [80, 96])
+def test_flash_attention_head_dims_80_96_take_sm90(cuda, D):
+    """A bf16 call at D 80 / 96 on stablelm's (B, S, H, D) views launches
+    the sm90 kernel (never the general one), and its output is the D 128
+    call's on the same inputs zero-padded, sliced back, with the true D's
+    scale: the same bits."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = _fa_inputs(gen, (2, 8, 8, 260, 260, D), torch.bfloat16, cuda,
+                         True, 2.0)
+    assert fa_ops.kernel_route(q.dtype, D, fa_ops.aligned16(q, k, v)) \
+        == "sm90"
+    n0 = (fa_ops.launches_sm90, fa_ops.launches_general)
+    o = fa_ops.flash_attention(q, k, v)
+    pad = [torch.nn.functional.pad(t, (0, 128 - D)) for t in (q, k, v)]
+    o_pad = fa_ops.flash_attention(*pad, sm_scale=1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches_sm90, fa_ops.launches_general) == (n0[0] + 2,
+                                                               n0[1])
+    assert torch.equal(o, o_pad[..., :D])
 
 
 @pytest.mark.cuda

@@ -134,10 +134,11 @@ def test_non_causal_longer_queries_are_taken(rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_kernel_route_rule(dtype, head_dim, aligned):
-    """The sm90 kernel takes 16-bit types at D 64, 128 and 256 with 16-byte
-    aligned pointers and strides; the general kernel the rest."""
-    want = ("sm90" if dtype != torch.float32 and head_dim in (64, 128, 256)
-            and aligned else "general")
+    """The sm90 kernel takes 16-bit types at D 64, 80, 96, 128 and 256 with
+    16-byte aligned pointers and strides; the general kernel the rest."""
+    want = ("sm90" if dtype != torch.float32
+            and head_dim in (64, 80, 96, 128, 256) and aligned
+            else "general")
     assert fa_ops.kernel_route(dtype, head_dim, aligned) == want
 
 
@@ -156,7 +157,9 @@ def _bshd_views(dtype, B, S, hq, hkv, D, width=None):
     (torch.bfloat16, 128, None, "sm90"),     # granite-3-8b's prefill
     (torch.float16, 64, None, "sm90"),
     (torch.bfloat16, 256, None, "sm90"),
-    (torch.bfloat16, 80, None, "general"),   # stablelm-3b's head dim
+    (torch.bfloat16, 80, None, "sm90"),      # stablelm-3b's head dim
+    (torch.float16, 96, None, "sm90"),
+    (torch.bfloat16, 80, 84, "general"),     # rows of 168 bytes
     (torch.float32, 128, None, "general"),
     (torch.bfloat16, 128, 132, "general"),   # rows of 264 bytes
 ])
@@ -168,6 +171,32 @@ def test_route_of_the_model_views(dtype, D, width, want):
         assert out.stride() == q.stride()
     route = fa_ops.kernel_route(dtype, D, fa_ops.aligned16(q, k, v, out))
     assert route == want
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)])
+@pytest.mark.parametrize("D", [80, 96])
+def test_zero_padded_head_dim_is_the_same_attention(rng, D, causal, window):
+    """The premise of the sm90 route at D 80 and 96: attention over q, k, v
+    zero-padded to D 128 (the padded columns add exact zeros to Q K^T, and
+    P V's extra columns are dropped), with the true D's scale, is the
+    attention at D; in the JAX reference and in the port's plain version,
+    GQA 8/2 with ragged S and Sq < Skv."""
+    q, k, v = _qkv(rng, 2, 8, 2, 70, 150, D)
+    pad = [np.pad(x, ((0, 0), (0, 0), (0, 0), (0, 128 - D)))
+           for x in (q, k, v)]
+    kw = dict(causal=causal, window=window)
+    r = np.asarray(jax_ref(*(jnp.asarray(x) for x in (q, k, v)), **kw))
+    r_pad = np.asarray(jax_ref(*(jnp.asarray(x) for x in pad),
+                               sm_scale=D ** -0.5, **kw))
+    mine_pad = _port(attention_ref, *pad, sm_scale=D ** -0.5, **kw)
+    assert r_pad.shape[-1] == mine_pad.shape[-1] == 128
+    np.testing.assert_array_equal(r_pad[..., D:], 0.0)
+    np.testing.assert_array_equal(mine_pad[..., D:], 0.0)
+    np.testing.assert_allclose(r_pad[..., :D], r, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(mine_pad[..., :D], r, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_port(attention_ref, q, k, v, **kw), r,
+                               rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("shapes,match", [

@@ -4,8 +4,10 @@
                                          [--trace DIR]
 
 Initializes one of ``chip_smoke.py``'s serving cells on the card (bf16,
-``attn_impl="flash"``, random weights from the seed): ``serve``
-(granite-3-8b, 4 prompts of 2048 tokens, 32 new tokens) or one of its
+``attn_impl="flash"``, random weights from the seed): one of its
+``DENSE_CELLS`` (``serve``: granite-3-8b, 4 prompts of 2048 tokens, 32
+new tokens; ``serve_stablelm``: stablelm-3b, 4 x 2,048;
+``serve_starcoder2``: starcoder2-15b, 4 x 4,096) or of its
 ``FAMILY_CELLS`` (``serve_moe``: mixtral-8x7b at 16 layers, 2 x 6,144;
 ``serve_hybrid``: recurrentgemma-9b, 4 x 4,096; ``serve_ssm``:
 mamba2-780m, 4 x 4,096; ``serve_vlm``: llama-3.2-vision-11b, 4 x 2,048
@@ -42,7 +44,7 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", default="serve",
-                    choices=["serve"] + [c[0] for c in cs.FAMILY_CELLS])
+                    choices=[c[0] for c in cs.DENSE_CELLS + cs.FAMILY_CELLS])
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--trace", default=None,
                     help="keep the Chrome traces in this directory")
@@ -57,8 +59,9 @@ def main() -> None:
 
     _build.build_all(("flash_attention",))
     dev = torch.device("cuda", 0)
-    arch, over, n_batch, prompt, gen = (
-        cs.LM_ARCH, {}, cs.SERVE_BATCH, cs.SERVE_PROMPT, cs.SERVE_GEN)
+    for cell in cs.DENSE_CELLS:
+        if cell[0] == args.cell:
+            arch, over, (n_batch, prompt, gen) = cell[1], {}, cell[2:5]
     for cell in cs.FAMILY_CELLS:
         if cell[0] == args.cell:
             arch, over, n_batch, prompt, gen = cell[1:]
